@@ -8,14 +8,29 @@ in order -- any failure raises and the script exits non-zero:
   1. device   require CUDA; print the card's name and power limit
   2. build    compile the port's CUDA kernels from tpu_ofdm_torch/csrc
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the main path's shapes and on golden frames; kernel and plain
-              times; rx_block on the card against rx_block on the CPU
+              the paths' shapes and on golden frames; kernel and plain
+              times; rx_block on the card against rx_block on the CPU.
+              sc_detect and gather also batched over 64 channels; pfb at
+              8..512 channels with a two-step tail carry; psd at 128, 384
+              and 1024 bins with two windows, bin by bin; pfb and psd also
+              at the shapes the paths give them
   4. main     streaming RX through StreamExecutor at block 2^25, K = 480,
               fft 64, cp 16, QPSK: 448 golden frames per block, 24 timed
               pushes x 3 trials; every frame must come back with the
               injected payload and crc_ok, and both kernels must have been
               launched by the main path
-  5. report   one JSON line of per-kernel results, the nvidia-smi line, and
+  5. wideband channelizer -> 64 parallel demods (BASELINE config 4) at
+              block 2^25, K = 4: 3 frames per push on channels 3, 17, 40,
+              4 timed pushes x 3 trials; every push must give exactly those
+              frames; pfb, sc_detect and gather must have been launched
+  6. spectrum spectrum probe (1024, blackman_harris), logpwrfft (1024,
+              alpha 0.1) and waterfall (512 x 32) on 2^22-sample blocks, 3
+              pushes each, against the same blocks on the CPU; the tone
+              must peak in its bin; psd must have been launched
+  7. scan     512-channel power scan on 2^23-sample blocks: the tone
+              channels must be the strongest, as on the CPU; pfb must have
+              been launched at 512 channels
+  8. report   one JSON line of per-kernel results, the nvidia-smi line, and
               the final {"ok": true, ...} line
 """
 
@@ -38,11 +53,22 @@ import golden_ofdm as G  # noqa: E402
 from tpu_ofdm_torch.config import OfdmConfig, StreamConfig
 from tpu_ofdm_torch.kernels import build
 from tpu_ofdm_torch.kernels import gather as kgather
+from tpu_ofdm_torch.kernels import pfb as kpfb
+from tpu_ofdm_torch.kernels import psd as kpsd
 from tpu_ofdm_torch.kernels import sc_detect as kdetect
 from tpu_ofdm_torch.modem.rx import rx_block
 from tpu_ofdm_torch.modem.rx_stream import (collect_frames, history_len,
                                             rx_stream_block)
+from tpu_ofdm_torch.modem.wideband import (collect_wideband_frames,
+                                           wideband_rx_block)
 from tpu_ofdm_torch.ops.sync import _select_from_rows
+from tpu_ofdm_torch.spectrum import (channelizer_block, log_pwr_fft_block,
+                                     spectrum_probe_block, waterfall_block)
+from tpu_ofdm_torch.spectrum.channelizer import (lowpass_taps,
+                                                 polyphase_decompose,
+                                                 synthesize_bursts)
+from tpu_ofdm_torch.stream.block import (chain, complex_to_mag_squared,
+                                         stateless)
 from tpu_ofdm_torch.stream.executor import StreamExecutor
 
 FRAMES_PER_BLOCK = 448
@@ -51,6 +77,41 @@ SLOTS = 480
 N_TIMED = 24
 MSG = bytes(range(64)) * 2
 HEADLINE = OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk")
+
+# BASELINE config 4, the shape of bench/wideband.py
+WIDEBAND = OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk",
+                      max_payload_bytes=64)
+WB_CHANS = 64
+WB_SLOTS = 4
+WB_PUSHES = 4
+WB_MSG = bytes(range(48))
+WB_ACTIVE = (3, 17, 40)
+WB_OFFSET = 200          # per-channel samples into every block
+WB_SLACK = 40            # group delay of the two filterbanks (test_wideband)
+
+PSD_BLOCK = 1 << 22      # bench/kernels.py's PSD size
+PSD_TONE_BIN = 100       # of 1024
+SCAN_BLOCK = 1 << 23     # bench/kernels.py's channelize_stream512 size
+SCAN_CHANS = 512
+SCAN_TONES = {11: 1.0, 100: 0.5, 257: 0.25, 500: 0.7}
+
+# each port kernel: its source and the TPU kernels it stands for, by def line
+SOURCES = {
+    "sc_detect": ("tpu_ofdm_torch/csrc/sc_detect.cu",
+                  "tpu_ofdm/kernels/sc_detect.py:299 _sc_detect_pallas, "
+                  "tpu_ofdm/kernels/sc_detect.py:349 _sc_detect_pallas_hist"),
+    "gather": ("tpu_ofdm_torch/csrc/gather.cu",
+               "tpu_ofdm/kernels/gather.py:113 _gather_super, "
+               "tpu_ofdm/kernels/gather.py:147 _gather_super2"),
+    "pfb": ("tpu_ofdm_torch/csrc/pfb.cu",
+            "tpu_ofdm/kernels/pfb.py:136 _pfb_pallas, "
+            "tpu_ofdm/kernels/pfb.py:252 _pfb_pallas_wide"),
+    "psd": ("tpu_ofdm_torch/csrc/psd.cu",
+            "tpu_ofdm/kernels/psd.py:125 _build_call"),
+}
+WRAPPERS = {"sc_detect": kdetect.sc_detect_rows,
+            "gather": kgather.gather_windows,
+            "pfb": kpfb.channelize_fused, "psd": kpsd.psd_fused}
 
 
 def log(*a):
@@ -254,18 +315,183 @@ def phase_kernels(dev, tag: str) -> list[dict]:
         raise AssertionError("rx_block: card and CPU disagree on frames")
     log(f"  rx_block card vs CPU on 2^16 samples: {len(sp)} frames agree")
 
-    kernels = [
-        {"name": "sc_detect", "route": "cuda",
-         "source": "tpu_ofdm_torch/csrc/sc_detect.cu",
-         "replaces": "tpu_ofdm/kernels/sc_detect.py:327",
-         "max_abs_err": err_det, "ms": ms_det, "plain_ms": ms_det_plain},
-        {"name": "gather", "route": "cuda",
-         "source": "tpu_ofdm_torch/csrc/gather.cu",
-         "replaces": "tpu_ofdm/kernels/gather.py:126",
-         "max_abs_err": (got - ref).abs().max().item(),
-         "ms": ms_g, "plain_ms": ms_g_plain},
-    ]
+    err_b_det, err_b_g = check_batched(dev, tag)
+    kernels = {
+        "sc_detect": {"max_abs_err": max(err_det, err_b_det), "ms": ms_det,
+                      "plain_ms": ms_det_plain},
+        "gather": {"max_abs_err": max((got - ref).abs().max().item(),
+                                      err_b_g),
+                   "ms": ms_g, "plain_ms": ms_g_plain},
+        "pfb": check_pfb(dev, tag),
+        "psd": check_psd(dev, tag),
+    }
     return kernels
+
+
+def check_batched(dev, tag: str) -> tuple[float, float]:
+    """sc_detect and gather over 64 channels of [3072 history | 2^19]
+    samples, each channel with its own frames: kernel rows and selections
+    equal the plain version's, and every frame is found."""
+    spec = WIDEBAND.spec
+    H = history_len(spec)
+    n = BLOCK // WB_CHANS
+    frame = golden_frame(spec, WB_MSG)
+    bufs = noisy_buffers(WB_CHANS, H + n, seed=11, dev=dev)
+    rng = np.random.RandomState(4)
+    gap = (H + n - 2 * len(frame)) // 3
+    positions = [sorted(rng.randint(0, gap - len(frame), 3)
+                        + np.arange(3) * gap + 100) for _ in range(WB_CHANS)]
+    f = torch.as_tensor(frame, device=dev)
+    for c, ps in enumerate(positions):
+        for p in ps:
+            bufs[c, p:p + len(frame)] += f
+    head = bufs[:, :H].contiguous()
+    x = bufs[:, H:].contiguous()
+    L = spec.fft_len // 2
+    what = f"sc_detect batched {WB_CHANS} x ({H} + 2^19)"
+    got = kdetect.sc_detect_rows(x, L, spec.cp_len, head=head)
+    ref = kdetect.sc_detect_rows_plain(x, L, spec.cp_len, head=head)
+    err = compare_rows(got, ref, what)
+    n_sm = H + n - spec.fft_len - spec.cp_len + 1
+    K = 8
+    sel = [_select_from_rows(spec, *rows, n_sm=n_sm, max_frames=K,
+                             threshold=spec.cfg.sync_threshold)
+           for rows in (got, ref)]
+    if not (torch.equal(sel[0].valid, sel[1].valid)
+            and torch.equal(sel[0].start, sel[1].start)):
+        raise AssertionError(f"{what}: selections differ")
+    for c, ps in enumerate(positions):
+        st = sel[0].start[c][sel[0].valid[c]].cpu().numpy()
+        want = np.asarray(ps)
+        if len(st) != len(want) or not np.all((st >= want)
+                                              & (st <= want + spec.cp_len)):
+            raise AssertionError(f"{what}: channel {c} found {st}, want {ps}")
+    log(f"  {what}: selections identical, all {3 * WB_CHANS} frames found")
+    ms = cuda_ms(lambda: kdetect.sc_detect_rows(x, L, spec.cp_len,
+                                                head=head), 20)
+    ms_plain = cuda_ms(lambda: kdetect.sc_detect_rows_plain(
+        x, L, spec.cp_len, head=head), 3)
+    log(f"  {what}: kernel {ms:.4f} ms, plain {ms_plain:.4f} ms  [{tag}]")
+
+    F = spec.max_frame_len
+    starts = sel[0].start.clamp(0, H + n - F).contiguous()
+    starts[:, -1] = torch.as_tensor([0, H - 1, H - F // 2, H + n - F] * 16,
+                                    dtype=torch.int32, device=dev)
+    gw = kgather.gather_windows(x, starts, F, head=head)
+    gw_ref = kgather.gather_windows_plain(x, starts, F, head=head)
+    if not torch.equal(gw, gw_ref):
+        raise AssertionError("gather batched: kernel differs from plain")
+    ms_g = cuda_ms(lambda: kgather.gather_windows(x, starts, F, head=head),
+                   50)
+    ms_g_plain = cuda_ms(lambda: kgather.gather_windows_plain(
+        x, starts, F, head=head), 10)
+    log(f"  gather batched {WB_CHANS} x K {K} F {F}: exact; kernel "
+        f"{ms_g:.4f} ms, plain {ms_g_plain:.4f} ms  [{tag}]")
+    return err, (gw - gw_ref).abs().max().item()
+
+
+def check_close(got, want, bar: float, what: str) -> float:
+    """max |got - want| <= bar * max|want|; returns the max abs error."""
+    e = (got - want).abs().max().item()
+    b = bar * want.abs().max().item()
+    if not e <= b:
+        raise AssertionError(f"{what}: max abs err {e:.3g} > {b:.3g}")
+    log(f"  {what}: max abs err {e:.3g} (bar {b:.3g})")
+    return e
+
+
+def check_power(got, want, what: str, floor: float | None = None) -> float:
+    """Linear power, bin by bin: |got - want| <= 1e-4 * (want + floor),
+    where floor is the median of `want` (its noise floor per bin) unless
+    given.  Every bin is held to its own size, not to the strongest one's:
+    a wrong or empty bin among the noise fails.  Returns the max abs
+    error."""
+    got, want = got.double(), want.double()
+    floor = want.median().item() if floor is None else floor
+    err = (got - want).abs()
+    ratio = (err / (1e-4 * (want.abs() + floor))).max().item()
+    if not ratio <= 1.0:
+        raise AssertionError(f"{what}: a bin is off by {ratio:.3g} x its "
+                             f"bar 1e-4 * (power + {floor:.3g})")
+    e = err.max().item()
+    log(f"  {what}: max abs err {e:.3g}, worst bin at {ratio:.3g} of its "
+        f"bar (floor {floor:.3g})")
+    return e
+
+
+def check_pfb(dev, tag: str) -> dict:
+    """pfb against its plain version at 8..512 channels over 2^20 samples,
+    in two steps joined by the tail carry, and at the paths' shapes, on
+    noise alone (atol 2e-4 * max|want|, the bar of
+    tests/test_kernels_pfb.py); then kernel and plain times at the paths'
+    shapes."""
+    err = 0.0
+    for N in (8, 64, 128, 384, 512):
+        poly = torch.as_tensor(polyphase_decompose(lowpass_taps(N), N),
+                               device=dev)
+        C = kpfb.tail_len(N, poly.shape[0])
+        rows = (1 << 20) // N
+        x = noisy_buffers(1, rows * N, seed=N, dev=dev)[0]
+        n0 = (rows // 2) * N
+        want = kpfb.channelize_fused_plain(x, poly)
+        a = kpfb.channelize_fused(x[:n0], poly, tail=x.new_zeros(C))
+        b = kpfb.channelize_fused(x[n0:], poly, tail=x[n0 - C:n0])
+        err = max(err, check_close(
+            torch.cat([a, b]), want, 2e-4,
+            f"pfb N {N} over 2^20 in two carried steps"))
+    times = {}
+    for N, n in ((WB_CHANS, BLOCK), (SCAN_CHANS, SCAN_BLOCK)):
+        poly = torch.as_tensor(polyphase_decompose(lowpass_taps(N), N),
+                               device=dev)
+        x = noisy_buffers(1, n, seed=3, dev=dev)[0]
+        tail = x[-kpfb.tail_len(N, poly.shape[0]):].clone()
+        err = max(err, check_close(
+            kpfb.channelize_fused(x, poly, tail),
+            kpfb.channelize_fused_plain(x, poly, tail), 2e-4,
+            f"pfb N {N} at {n} samples"))
+        times[N] = (cuda_ms(lambda: kpfb.channelize_fused(x, poly, tail), 20),
+                    cuda_ms(lambda: kpfb.channelize_fused_plain(x, poly, tail),
+                            3))
+        log(f"  pfb N {N} at {n} samples: kernel {times[N][0]:.4f} ms, "
+            f"plain {times[N][1]:.4f} ms  [{tag}]")
+    return {"max_abs_err": err, "ms": times[WB_CHANS][0],
+            "plain_ms": times[WB_CHANS][1]}
+
+
+def check_psd(dev, tag: str) -> dict:
+    """psd against its plain version on noise alone, at 128, 384 and 1024
+    bins with two windows and at the spectrum path's shapes: within
+    1e-4 * max (the bar of tests/test_kernels_psd.py), and bin by bin
+    (check_power); then kernel and plain times at the path's shapes."""
+    err = 0.0
+    x = noisy_buffers(1, 1 << 20, seed=21, dev=dev)[0]
+    cases = [(x, "2^20", N, window) for N in (128, 384, 1024)
+             for window in ("hann", "blackman_harris")]
+    x = noisy_buffers(1, PSD_BLOCK, seed=22, dev=dev)[0]
+    cases += [(x, "2^22", 1024, "blackman_harris"), (x, "2^22", 1024, "hann"),
+              (x, "2^22", 512, "hann")]
+    for xs, size, N, window in cases:
+        got = kpsd.psd_fused(xs, N, window)
+        want = kpsd.psd_fused_plain(xs, N, window)
+        what = f"psd N {N} {window} over {size}"
+        err = max(err, check_close(got, want, 1e-4, what),
+                  check_power(got, want, what))
+    times = {}
+    for N in (1024, 512):
+        times[N] = (cuda_ms(lambda: kpsd.psd_fused(x, N), 50),
+                    cuda_ms(lambda: kpsd.psd_fused_plain(x, N), 10))
+        log(f"  psd N {N} at 2^22 samples: kernel {times[N][0]:.4f} ms, "
+            f"plain {times[N][1]:.4f} ms  [{tag}]")
+    return {"max_abs_err": err, "ms": times[1024][0],
+            "plain_ms": times[1024][1]}
+
+
+def tone(n: int, k: int, period: int, dev, amp: float = 1.0) -> torch.Tensor:
+    """amp * exp(2 pi i k t / period), t < n, complex64; the phase index is
+    reduced mod `period` in integers, so it is exact."""
+    idx = (torch.arange(n, device=dev) * k) % period
+    ph = idx.to(torch.float32) * (2 * np.pi / period)
+    return (amp * torch.polar(torch.ones_like(ph), ph)).to(torch.complex64)
 
 
 # -- 4. main path --------------------------------------------------------------
@@ -344,15 +570,222 @@ def phase_main(dev, tag: str) -> dict:
             "launches": launches}
 
 
+def reset_launches(*names):
+    for name in names:
+        WRAPPERS[name].launches = 0
+
+
+def read_launches(path: str, *names) -> dict:
+    """The launch counts of `names` since reset_launches; raises if a
+    kernel of the path was never launched."""
+    launches = {name: WRAPPERS[name].launches for name in names}
+    log(f"{path}: launches {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{path} never launched {name}")
+    return launches
+
+
+# -- 5. wideband RX (BASELINE config 4) ---------------------------------------
+
+def wideband_capture(dev) -> torch.Tensor:
+    """One 2^25-sample wideband block: the golden frame, times n_chan, at
+    per-channel offset 200 on WB_ACTIVE through the synthesis filterbank
+    (bench/wideband.py's make_wideband_block, built sparsely), over
+    0.01-rms noise."""
+    frame = golden_frame(WIDEBAND.spec, WB_MSG)
+    wide = synthesize_bursts(BLOCK, WB_CHANS, [
+        (c, WB_OFFSET, frame * WB_CHANS) for c in WB_ACTIVE])
+    block = torch.as_tensor(wide).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(40)
+    block += torch.view_as_complex(
+        torch.randn((BLOCK, 2), generator=gen, device=dev) * 0.01)
+    return block
+
+
+def wideband_executor(dev) -> StreamExecutor:
+    sc = StreamConfig(block_size=BLOCK, max_frames_per_block=WB_SLOTS)
+    return StreamExecutor(wideband_rx_block(WIDEBAND.spec, WB_CHANS, sc),
+                          BLOCK, device=dev)
+
+
+def phase_wideband(dev, tag: str) -> dict:
+    spec = WIDEBAND.spec
+    S = BLOCK // WB_CHANS
+    block = wideband_capture(dev)
+    ex = wideband_executor(dev)
+
+    def trial():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [ex.push(block) for _ in range(WB_PUSHES)]
+        counts = torch.stack([o.result.valid.sum() for o in outs]).tolist()
+        return time.perf_counter() - t0, counts, outs
+
+    trial()                                   # warm-up
+    ex.reset()
+    names = ("pfb", "sc_detect", "gather")
+    reset_launches(*names)
+    results = [trial() for _ in range(3)]
+    launches = read_launches("wideband", *names)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ex.push(block)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("wideband: one push under sync debug mode 'error': no host sync")
+
+    for dt, counts, outs in results:
+        if counts != [len(WB_ACTIVE)] * WB_PUSHES:
+            raise AssertionError(f"wideband: frames per push {counts}")
+        frames = collect_wideband_frames(outs, S, spec)
+        steps = {int(o.block_index) for o in outs}
+        for step in steps:
+            got = sorted((f for f in frames
+                          if f["abs_start"] // S == step),
+                         key=lambda f: f["channel"])
+            ok = ([f["channel"] for f in got] == list(WB_ACTIVE)
+                  and all(f["payload"] == WB_MSG and f["crc_ok"]
+                          and abs(f["abs_start"] - WB_OFFSET - step * S)
+                          <= WB_SLACK for f in got))
+            if not ok:
+                raise AssertionError(f"wideband step {step}: {got}")
+    dt = min(r[0] for r in results)
+    sps = WB_PUSHES * BLOCK / dt
+    log(f"wideband: {len(WB_ACTIVE)} frames per push on channels "
+        f"{WB_ACTIVE}, payload + crc_ok + start all good in 3 trials; "
+        f"trials {[round(r[0], 4) for r in results]} s; "
+        f"{sps / 1e6:.1f} wideband Msamples/s  [{tag}]")
+    return {"msamples_per_s": sps / 1e6, "launches": launches}
+
+
+# -- 6. spectrum probe, logpwrfft and waterfall -------------------------------
+
+def power(db) -> torch.Tensor:
+    return 10.0 ** (db.cpu().double() / 10)
+
+
+def compare_db(got, want, what: str, floor: float | None = None) -> None:
+    """dB outputs on the card vs on the CPU, compared in linear power bin
+    by bin (check_power)."""
+    check_power(power(got), power(want), f"{what}, card vs CPU", floor)
+
+
+SPECTRUM_PATHS = {
+    "probe": lambda: spectrum_probe_block(1024, "blackman_harris"),
+    "logpwr": lambda: log_pwr_fft_block(1024, avg_alpha=0.1),
+    "waterfall": lambda: waterfall_block(512, depth=32),
+}
+
+
+def spectrum_blocks(dev) -> list[torch.Tensor]:
+    """Three 2^22-sample blocks: 0.01-rms noise and a tone in bin 100 of
+    1024 with twice the noise's power, ~30 dB above the noise in its bin
+    and too weak to set the float32 rounding of the other bins."""
+    return [noisy_buffers(1, PSD_BLOCK, seed=60 + i, dev=dev)[0] / 2
+            + tone(PSD_BLOCK, PSD_TONE_BIN, 1024, dev, 0.02)
+            for i in range(3)]
+
+
+def phase_spectrum(dev, tag: str) -> dict:
+    blocks = spectrum_blocks(dev)
+    reset_launches("psd")
+    on_card = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name, make in SPECTRUM_PATHS.items():
+        ex = StreamExecutor(make(), PSD_BLOCK, device=dev)
+        on_card[name] = [ex.push(b) for b in blocks][-1]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches("spectrum", "psd")
+    on_cpu = {}
+    for name, make in SPECTRUM_PATHS.items():
+        ex = StreamExecutor(make(), PSD_BLOCK)
+        on_cpu[name] = [ex.push(b.cpu()) for b in blocks][-1]
+
+    probe, probe_cpu = on_card["probe"], on_cpu["probe"]
+    if not (int(probe.n_frames) == int(probe_cpu.n_frames)
+            == 3 * PSD_BLOCK // 1024):
+        raise AssertionError(f"probe: {int(probe.n_frames)} frames")
+    # all three fields against the noise floor of the average spectrum
+    floor = power(probe_cpu.avg_db).median().item()
+    for field in ("avg_db", "max_db", "min_db"):
+        compare_db(getattr(probe, field), getattr(probe_cpu, field),
+                   f"probe {field}", floor)
+    compare_db(on_card["logpwr"], on_cpu["logpwr"], "logpwrfft")
+    compare_db(on_card["waterfall"], on_cpu["waterfall"], "waterfall")
+    peaks = (int(probe.avg_db.argmax()),
+             int(on_card["logpwr"].mean(0).argmax()),
+             int(on_card["waterfall"].mean(0).argmax()))
+    want = (PSD_TONE_BIN, PSD_TONE_BIN, 256 + PSD_TONE_BIN // 2)
+    if peaks != want:
+        raise AssertionError(f"spectrum: tone peaks at {peaks}, want {want}")
+    log(f"spectrum: probe, logpwrfft and waterfall match the CPU after 3 "
+        f"pushes of 2^22; tone peaks at bins {peaks}; 9 pushes in "
+        f"{dt:.4f} s  [{tag}]")
+    return {"launches": launches}
+
+
+# -- 7. 512-channel power scan ------------------------------------------------
+
+def scanner():
+    """apps/wideband_scanner.py's power mode at SCAN_CHANS channels."""
+    return chain(channelizer_block(SCAN_CHANS), complex_to_mag_squared(),
+                 stateless(lambda x: x.mean(-2)))
+
+
+def scan_blocks(dev) -> list[torch.Tensor]:
+    """Three 2^23-sample blocks: 0.01-rms noise and SCAN_TONES on channel
+    centres."""
+    blocks = []
+    for i in range(3):
+        b = noisy_buffers(1, SCAN_BLOCK, seed=70 + i, dev=dev)[0] / 2
+        for k, amp in SCAN_TONES.items():
+            b += tone(SCAN_BLOCK, k, SCAN_CHANS, dev, amp)
+        blocks.append(b)
+    return blocks
+
+
+def phase_scan(dev, tag: str) -> dict:
+    blocks = scan_blocks(dev)
+    reset_launches("pfb")
+    ex = StreamExecutor(scanner(), SCAN_BLOCK, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pwr = torch.stack([ex.push(b) for b in blocks])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches("scan", "pfb")
+    ex_cpu = StreamExecutor(scanner(), SCAN_BLOCK)
+    pwr_cpu = torch.stack([ex_cpu.push(b.cpu()) for b in blocks])
+    e = check_power(pwr.cpu(), pwr_cpu, "scan, card vs CPU")
+    top = sorted(pwr.sum(0).topk(len(SCAN_TONES)).indices.tolist())
+    if top != sorted(SCAN_TONES):
+        raise AssertionError(f"scan: strongest channels {top}, want "
+                             f"{sorted(SCAN_TONES)}")
+    log(f"scan: {SCAN_CHANS} channels, 3 pushes of 2^23 in {dt:.4f} s; "
+        f"strongest channels {top} as placed; card vs CPU max abs err "
+        f"{e:.3g}  [{tag}]")
+    return {"launches": launches}
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     kernels = phase_kernels(dev, smi)
-    main_res = phase_main(dev, smi)
-    for k in kernels:
-        k["launches"] = main_res["launches"][k["name"]]
-    log(json.dumps({"kernels": kernels}))
+    runs = [phase_main(dev, smi), phase_wideband(dev, smi),
+            phase_spectrum(dev, smi), phase_scan(dev, smi)]
+    report = []
+    for name, res in kernels.items():
+        source, replaces = SOURCES[name]
+        report.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(r["launches"].get(name, 0) for r in runs),
+            **res})
+    log(json.dumps({"kernels": report}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

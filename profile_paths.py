@@ -1,0 +1,135 @@
+"""Where a step's time goes, for each path that chip_smoke.py drives.
+
+    python3 profile_paths.py [--out chiprun_out/profile_paths.json]
+
+Needs one CUDA card and this checkout; imports no JAX.  Builds each cell
+with chip_smoke.py's shapes and inputs -- the headline stream, the config-4
+wideband receiver, the spectrum probe, logpwrfft and waterfall, and the
+512-channel scan -- and measures, per push:
+
+  wall ms      host clock over three windows of 10 pushes, each ended by
+               torch.cuda.synchronize(), without the profiler (min-max)
+  enqueue ms   host time spent inside those 10 push() calls (min-max)
+  busy ms      the union of the device's kernel, copy and set intervals in
+               a torch.profiler trace of 5 pushes after 3 warm-ups
+  ops          device operations per push in that trace
+  idle share   1 - busy / wall, for the fastest and slowest window
+  top          device ms per push by operation name, largest first
+
+Prints one line per cell and writes all of it as JSON to --out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import pathlib
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+from tpu_ofdm_torch.config import StreamConfig
+from tpu_ofdm_torch.modem.rx_stream import rx_stream_block
+from tpu_ofdm_torch.stream.executor import StreamExecutor
+
+STEPS = 5                # profiled pushes per cell
+
+
+def cells(dev):
+    """(name, executor, block) for each cell, built one at a time."""
+    sc = StreamConfig(block_size=cs.BLOCK, max_frames_per_block=cs.SLOTS)
+    blocks, _ = cs.staged_blocks(cs.HEADLINE.spec, 1, dev)
+    yield ("rx_stream_headline", StreamExecutor(
+        rx_stream_block(cs.HEADLINE.spec, sc), cs.BLOCK, device=dev),
+        blocks[0])
+    yield "wideband_config4", cs.wideband_executor(dev), \
+        cs.wideband_capture(dev)
+    block = cs.spectrum_blocks(dev)[0]
+    for name, make in cs.SPECTRUM_PATHS.items():
+        yield (f"spectrum_{name}",
+               StreamExecutor(make(), cs.PSD_BLOCK, device=dev), block)
+    yield ("scan512", StreamExecutor(cs.scanner(), cs.SCAN_BLOCK, device=dev),
+           cs.scan_blocks(dev)[0])
+
+
+def host_windows(ex, x, n=10, windows=3):
+    """[(wall ms/push, enqueue ms/push)] over `windows` runs of n pushes."""
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ex.push(x)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out.append(((t2 - t0) / n * 1e3, (t1 - t0) / n * 1e3))
+    return out
+
+
+def device_profile(ex, x):
+    """(busy ms/push, ops/push, {op name: ms/push}) from a torch.profiler
+    trace of STEPS pushes."""
+    for _ in range(3):
+        ex.push(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(STEPS):
+            ex.push(x)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:                  # union of intervals, in us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = collections.Counter()
+    for e in evs:
+        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    top = {k: v / STEPS for k, v in by_name.most_common(8)}
+    return busy / 1e3 / STEPS, len(evs) / STEPS, top
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="chiprun_out/profile_paths.json")
+    args = ap.parse_args()
+    smi = cs.phase_device()
+    dev = torch.device("cuda", 0)
+    cs.phase_build()
+    rows = {}
+    for name, ex, x in cells(dev):
+        ex.push(x)                                  # warm-up
+        host = host_windows(ex, x)
+        busy, ops, top = device_profile(ex, x)
+        walls = [w for w, _ in host]
+        row = {
+            "wall_ms": [min(walls), max(walls)],
+            "enqueue_ms": [min(e for _, e in host), max(e for _, e in host)],
+            "busy_ms": busy, "ops": ops,
+            "idle_share": [1 - busy / min(walls), 1 - busy / max(walls)],
+            "top_ms": top,
+        }
+        rows[name] = row
+        print(f"{name}: wall {row['wall_ms']} ms, enqueue "
+              f"{row['enqueue_ms']} ms, busy {busy:.4f} ms, {ops:g} ops, "
+              f"idle {row['idle_share']}; top "
+              + ", ".join(f"{k[:48]} {v:.4f}" for k, v in top.items()),
+              flush=True)
+        del ex, x
+        torch.cuda.empty_cache()
+    out = pathlib.Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"device": smi, "steps": STEPS,
+                               "cells": rows}, indent=1))
+    print(smi)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,183 @@
+"""The port's channelizer (plain version of the CUDA pfb kernel, and the
+streaming Block around it) against the JAX package: its XLA `channelize`
+chain and its fused Pallas kernel run in TPU interpret mode, as
+tests/test_kernels_pfb.py runs it.  Bar: atol 2e-4 * max|want|, the bar of
+tests/test_kernels_pfb.py.  The CUDA kernel itself is held against the
+plain version on the card by chip_smoke.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from tpu_ofdm.kernels import pfb as jpfb
+from tpu_ofdm.spectrum import channelizer as jch
+from tpu_ofdm.stream import executor as jex
+from tpu_ofdm_torch.kernels import pfb as tpfb
+from tpu_ofdm_torch.spectrum import channelizer as tch
+from tpu_ofdm_torch.stream import executor as tex
+
+
+def _rand(n, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n) + 1j * rng.randn(n)).astype(np.complex64)
+
+
+def _poly(n_chan, taps=None):
+    taps = tch.lowpass_taps(n_chan) if taps is None else taps
+    return torch.as_tensor(tch.polyphase_decompose(taps, n_chan))
+
+
+def _assert_close(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=2e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n_chan", [8, 64, 128, 256, 512])
+def test_plain_matches_jax_xla_and_pallas(n_chan):
+    taps = jch.lowpass_taps(n_chan)
+    rows = 40 if n_chan > 128 else 300
+    x = _rand(n_chan * rows, seed=n_chan)
+    xla = np.asarray(jch.channelize(jnp.asarray(x), n_chan, taps))
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(jpfb.channelize_fused(jnp.asarray(x), n_chan,
+                                                  taps))
+    got = tpfb.channelize_fused(torch.as_tensor(x), _poly(n_chan, taps))
+    assert got.dtype == torch.complex64 and got.shape == (rows, n_chan)
+    _assert_close(got, xla)
+    _assert_close(got, pallas)
+    _assert_close(tch.channelize(torch.as_tensor(x), n_chan, taps), xla)
+
+
+@pytest.mark.parametrize("n_chan", [64, 512])
+def test_two_step_tail_carry_matches_oneshot(n_chan):
+    """Two tail-carried steps == one pass, including the FIR lookback
+    across the step boundary."""
+    taps = tch.lowpass_taps(n_chan)
+    C = tpfb.tail_len(n_chan, 8)
+    n0, n1 = n_chan * 24, n_chan * 16
+    x = torch.as_tensor(_rand(n0 + n1, seed=5))
+    poly = _poly(n_chan, taps)
+    want = np.asarray(jch.channelize(jnp.asarray(x.numpy()), n_chan, taps))
+    a = tpfb.channelize_fused(x[:n0], poly, tail=torch.zeros(
+        C, dtype=torch.complex64))
+    b = tpfb.channelize_fused(x[n0:], poly, tail=x[n0 - C:n0])
+    _assert_close(torch.cat([a, b]), want)
+    np.testing.assert_array_equal(
+        a.numpy(), tpfb.channelize_fused(x[:n0], poly).numpy())
+
+
+def test_tail_len_and_supported_match_jax():
+    for n_chan in (2, 8, 48, 64, 128, 192, 256, 384, 512, 1024):
+        assert tpfb.supported(n_chan) == jpfb.supported(n_chan), n_chan
+        for j in (1, 4, 8, 16):
+            assert tpfb.tail_len(n_chan, j) == jpfb.tail_len(n_chan, j)
+        taps = jch.lowpass_taps(n_chan)
+        assert (tch.stream_tail_len(n_chan, taps)
+                == jch.stream_tail_len(n_chan, taps))
+
+
+def test_taps_and_polyphase_bit_exact():
+    for n_chan, tpa in ((8, 8), (64, 8), (512, 8), (16, 12)):
+        np.testing.assert_array_equal(tch.lowpass_taps(n_chan, tpa),
+                                      jch.lowpass_taps(n_chan, tpa))
+    taps = jch.lowpass_taps(48, 5)[:-7]          # a ragged last arm
+    np.testing.assert_array_equal(tch.polyphase_decompose(taps, 48),
+                                  jch.polyphase_decompose(taps, 48))
+
+
+def test_tone_lands_in_right_channel():
+    """A tone at k*fs/N appears (near-flat) in channel k (the port of
+    tests/test_spectrum.py's test: an arm-order or twiddle slip mirrors the
+    channels)."""
+    n_chan, k = 16, 5
+    t = np.arange(n_chan * 256)
+    x = torch.as_tensor(
+        np.exp(2j * np.pi * k / n_chan * t).astype(np.complex64))
+    for y in (tch.channelize(x, n_chan, tch.lowpass_taps(n_chan)),
+              tpfb.channelize_fused(x, _poly(n_chan))):
+        pwr = (y.abs() ** 2).mean(0).numpy()
+        assert np.argmax(pwr) == k
+        assert pwr[k] > 50 * (np.sum(pwr) - pwr[k]) / (n_chan - 1)
+
+
+def test_resume_from_jax_tail():
+    """A tail saved by the JAX channelize_stream resumes in the port."""
+    n_chan = 64
+    taps = jch.lowpass_taps(n_chan)
+    poly_j = jnp.asarray(jch.polyphase_decompose(taps, n_chan))
+    C = jch.stream_tail_len(n_chan, taps)
+    x = _rand(n_chan * 64, seed=8)
+    half = n_chan * 40
+    _, tail = jch.channelize_stream(jnp.asarray(x[:half]),
+                                    jnp.zeros(C, jnp.complex64), n_chan,
+                                    taps, poly_j)
+    want, want_tail = jch.channelize_stream(jnp.asarray(x[half:]), tail,
+                                            n_chan, taps, poly_j)
+    got, got_tail = tch.channelize_stream(
+        torch.as_tensor(x[half:]), torch.tensor(np.asarray(tail)), n_chan,
+        _poly(n_chan, taps))
+    _assert_close(got, want)
+    np.testing.assert_array_equal(got_tail.numpy(), np.asarray(want_tail))
+
+
+@pytest.mark.parametrize("block", [8 * 128, 8 * 16])
+def test_channelizer_block_matches_jax(block):
+    """Through both executors with drain; block 8 * 16 is shorter than the
+    tail, so the new tail comes from [tail | x]."""
+    n_chan = 8
+    taps = jch.lowpass_taps(n_chan)
+    x = _rand(8 * 512, seed=6)
+    jx = jex.StreamExecutor(jch.channelizer_block(n_chan, taps), block,
+                            donate=False)
+    want = np.concatenate([np.asarray(o) for o in jx.run(x, drain=True)])
+    ex = tex.StreamExecutor(tch.channelizer_block(n_chan, taps), block)
+    got = torch.cat(ex.run(torch.as_tensor(x), drain=True))
+    _assert_close(got, want)
+    np.testing.assert_array_equal(ex.state.numpy(), np.asarray(jx.state))
+
+
+def test_synthesis_matches_jax():
+    n_chan = 8
+    f = _rand(300, seed=2)
+    bursts = [(1, 10, f), (5, 100, f[:120] * 2), (1, 400, f[:50])]
+    got = tch.synthesize_bursts(8 * 600, n_chan, bursts)
+    np.testing.assert_array_equal(got, jch.synthesize_bursts(
+        8 * 600, n_chan, bursts))
+    chans = np.zeros((64, n_chan), np.complex64)
+    chans[:, 3] = _rand(64, seed=4)
+    np.testing.assert_array_equal(tch.synthesize_wideband(chans),
+                                  jch.synthesize_wideband(chans))
+
+
+def test_wrapper_takes_plain_version_on_cpu():
+    x = torch.as_tensor(_rand(64 * 20, seed=1))
+    poly = _poly(64)
+    before = tpfb.channelize_fused.launches
+    got = tpfb.channelize_fused(x, poly)
+    torch.testing.assert_close(got, tpfb.channelize_fused_plain(x, poly),
+                               rtol=0, atol=0)
+    assert tpfb.channelize_fused.launches == before
+
+
+@pytest.mark.parametrize("bad", ["x_dtype", "ragged", "n_chan", "short_tail",
+                                 "poly_dtype"])
+def test_wrapper_rejects_bad_inputs(bad):
+    x = torch.zeros(64 * 8, dtype=torch.complex64)
+    poly = _poly(64)
+    tail = None
+    if bad == "x_dtype":
+        x = x.to(torch.complex128)
+    elif bad == "ragged":
+        x = x[:-3]
+    elif bad == "n_chan":
+        x, poly = torch.zeros(48 * 8, dtype=torch.complex64), _poly(48)
+    elif bad == "short_tail":
+        tail = torch.zeros(64, dtype=torch.complex64)
+    else:
+        poly = poly.double()
+    with pytest.raises((TypeError, ValueError)):
+        tpfb.channelize_fused(x, poly, tail=tail)

@@ -153,7 +153,7 @@ def test_wrapper_rejects_bad_inputs(bad):
     if bad == "dtype":
         x = x.to(torch.complex128)
     elif bad == "ndim":
-        x = x.reshape(2, 2048)
+        x = x.reshape(2, 2, 1024)
     elif bad == "stride":
         x = torch.zeros(8192, dtype=torch.complex64)[::2]
     else:

@@ -5,7 +5,11 @@
 // (_sc_detect_pallas_hist).  Here both are one kernel that reads the
 // virtual buffer [head | x] (h = 0 gives the contiguous form).
 //
-// Output: a (6, rows) float32 array, rows = ceil((h + n) / 128), with the
+// Batched: B rows of samples, each its own virtual buffer [head_b | x_b]
+// (the wideband receiver's channels; the batched form of the JAX kernel,
+// tpu_ofdm/kernels/sc_detect.py:470-502).  B = 1 is the streaming receiver.
+//
+// Output: a (6, B, rows) float32 array, rows = ceil((h + n) / 128), with the
 // six row summaries of tpu_ofdm.ops.sync._detect_rows_jnp, indexed by the
 // trailing position t of each window in virtual coordinates (L = fft/2,
 // W = cp + 1, c = cp - cp/2):
@@ -26,7 +30,8 @@
 // multiply-adds on four streams plus W adds for the boxcar, all from shared
 // memory; device-memory traffic is only the 8-byte sample read (plus a
 // 2L+W-2 sample halo per CTA) and 24 bytes per 128-sample row.  Design, kept
-// simple: one CTA of 256 threads owns 8 rows (1024 trailing positions),
+// simple: one CTA of 256 threads owns 8 rows (1024 trailing positions) of
+// one batch row (grid.y),
 // loads its samples plus the halo into shared memory once, computes P, R1,
 // R2 and M for every position its boxcar needs as direct float32 sums (no
 // running sums, so no drift), then one warp per row reduces max, first
@@ -45,8 +50,9 @@ constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 sc_detect_kernel(const float2* __restrict__ head, long long h,
-                 const float2* __restrict__ x, long long nv, int L, int W,
-                 int c, long long rows, float* __restrict__ out) {
+                 long long head_stride, const float2* __restrict__ x,
+                 long long nv, long long x_stride, int L, int W, int c,
+                 long long rows, float* __restrict__ out) {
   extern __shared__ float4 smem[];
   const int halo = 2 * L + W - 2;
   const int span = kTile + halo;  // samples this CTA reads
@@ -58,6 +64,11 @@ sc_detect_kernel(const float2* __restrict__ head, long long h,
   float* mm = r2 + nm;
 
   const long long base = static_cast<long long>(blockIdx.x) * kTile;
+  const long long batch = blockIdx.y;
+  const long long plane = gridDim.y * rows;  // one output summary, all rows
+  if (head != nullptr) head += batch * head_stride;
+  x += batch * x_stride;
+  out += batch * rows;
   for (int i = threadIdx.x; i < span; i += kThreads)
     xs[i] = tpu_ofdm::virtual_load(head, h, x, nv, base - halo + i);
   __syncthreads();
@@ -125,25 +136,29 @@ sc_detect_kernel(const float2* __restrict__ head, long long h,
       const int jc = static_cast<int>(tc - base) + W - 1;  // >= 0: c <= W-1
       const bool ok = tc >= t_pr && tc < nv;
       out[row] = best;
-      out[rows + row] = __int_as_float(static_cast<int>(ts));
-      out[2 * rows + row] = ok ? pre[jc] : 0.f;
-      out[3 * rows + row] = ok ? pim[jc] : 0.f;
-      out[4 * rows + row] = ok ? r2[jc] : 0.f;
-      out[5 * rows + row] = rmax;
+      out[plane + row] = __int_as_float(static_cast<int>(ts));
+      out[2 * plane + row] = ok ? pre[jc] : 0.f;
+      out[3 * plane + row] = ok ? pim[jc] : 0.f;
+      out[4 * plane + row] = ok ? r2[jc] : 0.f;
+      out[5 * plane + row] = rmax;
     }
   }
 }
 
 }  // namespace
 
-// head: h complex64 samples (may be null when h == 0); x: n samples;
-// out: 6 * rows float32 with rows = ceil((h + n) / 128).  Launches on
-// `stream` and returns cudaGetLastError().
-extern "C" int sc_detect_launch(const void* head, long long h, const void* x,
-                                long long n, int L, int cp, void* out,
-                                long long rows, void* stream) {
-  if (L < 1 || cp < 0 || h < 0 || n < 0) return cudaErrorInvalidValue;
-  if (rows == 0) return cudaSuccess;
+// head: B rows of h complex64 samples, row b at head + b * head_stride
+// (may be null when h == 0); x: B rows of n samples, row b at
+// x + b * x_stride; out: (6, B, rows) float32 with rows = ceil((h + n) /
+// 128).  Launches on `stream` and returns cudaGetLastError().
+extern "C" int sc_detect_launch(const void* head, long long h,
+                                long long head_stride, const void* x,
+                                long long n, long long x_stride, int B, int L,
+                                int cp, void* out, long long rows,
+                                void* stream) {
+  if (L < 1 || cp < 0 || h < 0 || n < 0 || B < 0 || B > 65535)
+    return cudaErrorInvalidValue;
+  if (rows == 0 || B == 0) return cudaSuccess;
   const int W = cp + 1;
   const int c = cp - cp / 2;
   const size_t smem = (kTile + 2 * L + W - 2) * sizeof(float2) +
@@ -155,9 +170,10 @@ extern "C" int sc_detect_launch(const void* head, long long h, const void* x,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const long long grid = (rows + kRowsPerCta - 1) / kRowsPerCta;
-  sc_detect_kernel<<<static_cast<unsigned>(grid), kThreads, smem,
+  sc_detect_kernel<<<dim3(static_cast<unsigned>(grid), B), kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(head), h, static_cast<const float2*>(x),
-      h + n, L, W, c, rows, static_cast<float*>(out));
+      static_cast<const float2*>(head), h, head_stride,
+      static_cast<const float2*>(x), h + n, x_stride, L, W, c, rows,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-Every source in `tpu_ofdm_torch/csrc/` compiles with nvcc for sm_90a into
+Every source in `tpu_ofdm_torch/csrc/` compiles with nvcc for sm_90a, one
+nvcc process per source, all started together, and the objects link into
 ONE shared library with a plain C interface (no PyTorch headers, so the
 build takes seconds, not minutes).  The library lands in
 `tpu_ofdm_torch/_build/<hash of sources and flags>/` and is loaded once per
@@ -32,14 +33,17 @@ BUILD_ROOT = PKG / "_build"
 LIB_NAME = "libtpu_ofdm_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # C signatures of csrc/*.cu; the trailing pointer of each launch is the stream
 _SIGNATURES = {
-    "sc_detect_launch": [_P, _LL, _P, _LL, _I, _I, _P, _LL, _P],
-    "gather_launch": [_P, _LL, _P, _LL, _P, _I, _I, _P, _P],
+    "sc_detect_launch": [_P, _LL, _LL, _P, _LL, _LL, _I, _I, _I, _P, _LL,
+                         _P],
+    "gather_launch": [_P, _LL, _LL, _P, _LL, _LL, _I, _P, _I, _I, _P, _P],
+    "pfb_launch": [_P, _LL, _P, _LL, _P, _I, _I, _P, _P],
+    "psd_launch": [_P, _LL, _P, _I, _P, _P],
 }
 
 
@@ -95,18 +99,33 @@ def library() -> KernelLibrary:
     seconds = 0.0
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               *map(str, _sources())]
+        tag = f"{os.getpid()}.tmp"
+        tmp = out_dir / f"{LIB_NAME}.{tag}"
+        nvcc = nvcc_path()
+        objs = [out_dir / f"{src.stem}.{tag}.o" for src in _sources()]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                     str(src)] for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        logs = [proc.communicate()[0] for proc in procs]
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", str(tmp), *map(str, objs)]
+        steps = list(zip(compiles, procs, logs))
+        if all(proc.returncode == 0 for proc in procs):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            steps.append((link, proc, proc.stdout + proc.stderr))
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
+        log = "".join(out for _, _, out in steps)
+        for cmd, proc, out in steps:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}")
         log_path.write_text(log)
         os.replace(tmp, so)
+        for obj in objs:
+            obj.unlink()
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -119,15 +138,17 @@ def library() -> KernelLibrary:
 
 
 def check_vector(t, name: str, dtype: torch.dtype,
-                 device: torch.device | None = None) -> None:
-    """Raise unless `t` is a contiguous 1-D tensor of `dtype` (on
-    `device`, when given)."""
+                 device: torch.device | None = None,
+                 ndims: tuple[int, ...] = (1,)) -> None:
+    """Raise unless `t` is a contiguous tensor of `dtype` with a rank in
+    `ndims` (on `device`, when given)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.ndim != 1:
-        raise ValueError(f"{name} must be 1-D, got shape {tuple(t.shape)}")
+    if t.ndim not in ndims:
+        raise ValueError(f"{name} must have rank in {ndims}, got shape "
+                         f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if device is not None and t.device != device:

@@ -3,8 +3,10 @@
 Counterpart of tpu_ofdm/kernels/gather.py (`gather_windows` and
 `gather_windows_two`): out[k] = virtual[starts[k] : starts[k] + length] as
 a (K, length) complex64 tensor, over the virtual buffer [head | x] (head
-None or empty gives the one-source form).  Positions outside the virtual
-buffer read as zero.  CUDA tensors launch the kernel; CPU tensors take
+None or empty gives the one-source form).  Batched: x (B, n), head (B, h)
+and starts (B, K) give (B, K, length), row b reading its own buffer (the
+wideband receiver's channels).  Positions outside the virtual buffer read as
+zero.  CUDA tensors launch the kernel; CPU tensors take
 `gather_windows_plain`.
 """
 
@@ -18,31 +20,41 @@ from tpu_ofdm_torch.kernels.build import check_vector, complex_ptr, library
 def gather_windows_plain(x: torch.Tensor, starts: torch.Tensor, length: int,
                          head: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of `gather_windows` (same arguments)."""
-    v = x if head is None else torch.cat([head, x])
-    nv = v.shape[0]
-    pos = starts.to(torch.int64)[:, None] + torch.arange(length,
-                                                         device=x.device)
+    v = x if head is None else torch.cat([head, x], dim=-1)
+    nv = v.shape[-1]
+    pos = starts.to(torch.int64)[..., None] + torch.arange(length,
+                                                           device=x.device)
     inside = (pos >= 0) & (pos < nv)
-    return torch.where(inside, v[pos.clamp(0, max(nv - 1, 0))], 0)
+    flat = pos.clamp(0, max(nv - 1, 0)).reshape(*pos.shape[:-2], -1)
+    got = v.gather(-1, flat).reshape(pos.shape)
+    return torch.where(inside, got, 0)
 
 
 def gather_windows(x: torch.Tensor, starts: torch.Tensor, length: int,
                    head: torch.Tensor | None = None) -> torch.Tensor:
-    """(K, length) complex64 windows of [head | x] at int32 `starts`."""
-    check_vector(x, "x", torch.complex64)
-    check_vector(starts, "starts", torch.int32, x.device)
+    """(K, length) complex64 windows of [head | x] at int32 `starts` (K,);
+    batched, (B, K, length) from x (B, n), head (B, h), starts (B, K)."""
+    check_vector(x, "x", torch.complex64, ndims=(1, 2))
+    check_vector(starts, "starts", torch.int32, x.device, ndims=(x.ndim,))
     if head is not None:
-        check_vector(head, "head", torch.complex64, x.device)
+        check_vector(head, "head", torch.complex64, x.device, ndims=(x.ndim,))
+    for name, t in (("starts", starts), ("head", head)):
+        if t is not None and t.shape[:-1] != x.shape[:-1]:
+            raise ValueError(f"{name} {tuple(t.shape)} and x "
+                             f"{tuple(x.shape)} differ in batch")
     if x.device.type == "cpu":
         return gather_windows_plain(x, starts, length, head)
     if x.device.type != "cuda":
         raise ValueError(f"gather_windows: unsupported device {x.device}")
-    h = 0 if head is None else head.shape[0]
-    K = starts.shape[0]
-    out = torch.empty((K, length), dtype=torch.complex64, device=x.device)
+    h = 0 if head is None else head.shape[-1]
+    B = x.shape[0] if x.ndim == 2 else 1
+    K = starts.shape[-1]
+    out = torch.empty((*starts.shape, length), dtype=torch.complex64,
+                      device=x.device)
     library().launch(
-        "gather_launch", x.device, complex_ptr(head), h, complex_ptr(x),
-        x.shape[0], starts.data_ptr(), K, length, complex_ptr(out),
+        "gather_launch", x.device, complex_ptr(head), h, h, complex_ptr(x),
+        x.shape[-1], x.shape[-1], B, starts.data_ptr(), K, length,
+        complex_ptr(out),
     )
     gather_windows.launches += 1
     return out

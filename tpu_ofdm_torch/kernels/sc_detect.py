@@ -4,7 +4,9 @@ and its plain version.
 Counterpart of tpu_ofdm/kernels/sc_detect.py (`sc_detect_rows` and
 `sc_detect_rows_hist`).  `sc_detect_rows(x, L, cp, head)` works on the
 virtual buffer [head | x] and returns the six per-row summaries that
-ops.sync._select_from_rows consumes, each (ceil((h + n) / 128),):
+ops.sync._select_from_rows consumes, each (ceil((h + n) / 128),).  It also
+takes a batch: x (B, n) and head (B, h) are B separate virtual buffers (the
+wideband receiver's channels), and each summary is then (B, rows).
 
     smmax f32   max over the row of the CP-boxcar-smoothed metric, plus the
                 tie-break ramp; -inf where no full window exists
@@ -40,21 +42,23 @@ def _window_sums(s: torch.Tensor, w: int) -> torch.Tensor:
     percent of a window sum; float64 keeps the plain version a trustworthy
     yardstick at full size."""
     c = torch.cumsum(s.to(torch.float64), dim=-1)
-    lag = torch.cat([c.new_zeros(1), c[: c.shape[0] - w]])
-    return (c[w - 1:] - lag).to(torch.float32)
+    lag = torch.cat([c.new_zeros((*c.shape[:-1], 1)),
+                     c[..., : c.shape[-1] - w]], dim=-1)
+    return (c[..., w - 1:] - lag).to(torch.float32)
 
 
 def sc_detect_rows_plain(x: torch.Tensor, L: int, cp: int,
                          head: torch.Tensor | None = None):
     """Plain PyTorch version of `sc_detect_rows` (same arguments)."""
-    v = x if head is None else torch.cat([head, x])
-    nv = v.shape[0]
+    v = x if head is None else torch.cat([head, x], dim=-1)
+    lead = v.shape[:-1]
+    nv = v.shape[-1]
     W = cp + 1
     c = cp - cp // 2
     t_sm = 2 * L + W - 2
-    a = torch.view_as_real(v[:-L])       # x[u - L]
-    b = torch.view_as_real(v[L:])        # x[u]
-    ar, ai, br, bi = a[:, 0], a[:, 1], b[:, 0], b[:, 1]
+    a = torch.view_as_real(v[..., :-L])       # x[u - L]
+    b = torch.view_as_real(v[..., L:])        # x[u]
+    ar, ai, br, bi = a[..., 0], a[..., 1], b[..., 0], b[..., 1]
     p_re = _window_sums(ar * br + ai * bi, L)   # valid mode: index t - (2L-1)
     p_im = _window_sums(ar * bi - ai * br, L)
     r2 = _window_sums(br * br + bi * bi, L)
@@ -69,17 +73,17 @@ def sc_detect_rows_plain(x: torch.Tensor, L: int, cp: int,
 
     def at(z, off, fill):
         # t-indexed: out[t] = z[t - off], filled outside, length npad
-        keep = max(0, min(z.shape[0], npad - off))
-        return F.pad(z[:keep], (off, npad - off - keep), value=fill)
+        keep = max(0, min(z.shape[-1], npad - off))
+        return F.pad(z[..., :keep], (off, npad - off - keep), value=fill)
 
     t = torch.arange(npad, dtype=torch.int64, device=x.device)
     smf = at(sm, t_sm, float("-inf")) + tiebreak(t)
-    smr = smf.reshape(rows, ROW)
+    smr = smf.reshape(*lead, rows, ROW)
     arg = smr.argmax(-1)
     smarg = (torch.arange(rows, device=x.device) * ROW + arg).to(torch.int32)
 
     def pick(z):
-        return z.reshape(rows, ROW).gather(-1, arg[:, None])[:, 0]
+        return z.reshape(*lead, rows, ROW).gather(-1, arg[..., None])[..., 0]
 
     return (
         smr.amax(-1),
@@ -87,18 +91,22 @@ def sc_detect_rows_plain(x: torch.Tensor, L: int, cp: int,
         pick(at(p_re, 2 * L - 1 + c, 0.0)),
         pick(at(p_im, 2 * L - 1 + c, 0.0)),
         pick(at(r2, 2 * L - 1 + c, 0.0)),
-        at(r2, 2 * L - 1, 0.0).reshape(rows, ROW).amax(-1),
+        at(r2, 2 * L - 1, 0.0).reshape(*lead, rows, ROW).amax(-1),
     )
 
 
 def sc_detect_rows(x: torch.Tensor, L: int, cp: int,
                    head: torch.Tensor | None = None):
-    """Row summaries over the virtual buffer [head | x] (complex64, 1-D)."""
-    check_vector(x, "x", torch.complex64)
+    """Row summaries over the virtual buffer [head | x]: complex64, x (n,)
+    with head (h,), or a batch x (B, n) with head (B, h)."""
+    check_vector(x, "x", torch.complex64, ndims=(1, 2))
     if head is not None:
-        check_vector(head, "head", torch.complex64, x.device)
-    h = 0 if head is None else head.shape[0]
-    nv = h + x.shape[0]
+        check_vector(head, "head", torch.complex64, x.device, ndims=(x.ndim,))
+        if head.shape[:-1] != x.shape[:-1]:
+            raise ValueError(f"head {tuple(head.shape)} and x "
+                             f"{tuple(x.shape)} differ in batch")
+    h = 0 if head is None else head.shape[-1]
+    nv = h + x.shape[-1]
     # 2^30, not the int32 limit: _select_from_rows marks invalid candidates
     # with the sentinel 1 << 30
     if nv >= 1 << 30:
@@ -109,12 +117,15 @@ def sc_detect_rows(x: torch.Tensor, L: int, cp: int,
     if x.device.type != "cuda":
         raise ValueError(f"sc_detect_rows: unsupported device {x.device}")
     rows = -(-nv // ROW)
-    out = torch.empty((6, rows), dtype=torch.float32, device=x.device)
+    B = x.shape[0] if x.ndim == 2 else 1
+    out = torch.empty((6, B, rows), dtype=torch.float32, device=x.device)
     library().launch(
-        "sc_detect_launch", x.device, complex_ptr(head), h, complex_ptr(x),
-        x.shape[0], L, cp, out.data_ptr(), rows,
+        "sc_detect_launch", x.device, complex_ptr(head), h, h,
+        complex_ptr(x), x.shape[-1], x.shape[-1], B, L, cp, out.data_ptr(),
+        rows,
     )
     sc_detect_rows.launches += 1
+    out = out.reshape(6, *x.shape[:-1], rows)
     return (out[0], out[1].view(torch.int32), out[2], out[3], out[4], out[5])
 
 

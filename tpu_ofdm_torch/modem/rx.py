@@ -14,7 +14,12 @@ one slot's own axes.  Everything is fixed capacity plus validity masks, so
 the whole block is enqueued on the device without waiting on the host.
 
 This slice implements the pilot-phase equalizer with hard decisions (the
-JAX package's defaults), so FrameResult has no soft-output `llr` field.
+JAX package's defaults), so FrameResult has no soft-output `llr` field, and
+rx_block raises for any other `equalizer`.
+
+rx_block also takes a batch of B buffers (B, n) -- the wideband receiver's
+channels, which the JAX package vmaps over -- and then every result field
+leads with (B, K).
 """
 
 from __future__ import annotations
@@ -127,10 +132,10 @@ def demod_frame(spec: OfdmSpec, frames: torch.Tensor) -> FrameResult:
 
 
 class RxBlockResult(NamedTuple):
-    frames: FrameResult      # batched over K slots
-    starts: torch.Tensor     # (K,) int32 start index in the virtual buffer
-    fine_cfo: torch.Tensor   # (K,) float32
-    valid: torch.Tensor      # (K,) bool: slot holds an accepted detection
+    frames: FrameResult      # batched over ([B,] K) slots
+    starts: torch.Tensor     # ([B,] K) int32 start index in the virtual buffer
+    fine_cfo: torch.Tensor   # ([B,] K) float32
+    valid: torch.Tensor      # ([B,] K) bool: slot holds an accepted detection
 
 
 def rx_block(
@@ -140,15 +145,21 @@ def rx_block(
     own_lo: int = 0,
     own_hi: int | None = None,
     head: torch.Tensor | None = None,
+    equalizer: str = "pilot_phase",
 ) -> RxBlockResult:
     """Detect and demodulate up to `max_frames` frames in the virtual
-    buffer [head | x] (complex64, 1-D; head None for x alone), without
-    building the concatenation: detection and the slot-window gather both
-    read the two pieces in place.  Same semantics as the JAX rx_block on
-    concat([head, x]); all positions are virtual coordinates.
+    buffer [head | x] (complex64; x (n,) with head (h,), or a batch x
+    (B, n) with head (B, h); head None for x alone), without building the
+    concatenation: detection and the slot-window gather both read the two
+    pieces in place.  Same semantics as the JAX rx_block on
+    concat([head, x]) (vmapped over the batch); all positions are virtual
+    coordinates.
 
     Ownership window [own_lo, own_hi): only detections whose start falls in
     it are accepted (the streaming receiver's exactly-once rule)."""
+    if equalizer != "pilot_phase":
+        raise NotImplementedError(
+            f"equalizer {equalizer!r}: the port has only 'pilot_phase'")
     nv = x.shape[-1] + (0 if head is None else head.shape[-1])
     if own_hi is None:
         own_hi = nv
@@ -157,8 +168,11 @@ def rx_block(
     F = spec.max_frame_len
     # clamp so invalid slots still gather in range
     gstart = det.start.clamp(0, max(nv - F, 0))
-    wins = gather_windows(x, gstart, F, head=head)
-    frames = demod_frame(spec, derotate(wins, det.fine_cfo, spec.fft_len))
+    wins = derotate(gather_windows(x, gstart, F, head=head), det.fine_cfo,
+                    spec.fft_len)
+    lead = wins.shape[:-1]                      # ([B,] K)
+    flat = demod_frame(spec, wins.reshape(-1, F))
+    frames = FrameResult(*(f.reshape(*lead, *f.shape[1:]) for f in flat))
     # a slot is valid only if owned AND acquisition confirmed AND header ok
     valid = owned & frames.sync_ok & frames.hdr_ok
     return RxBlockResult(frames, det.start, det.fine_cfo, valid)

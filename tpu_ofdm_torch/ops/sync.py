@@ -6,7 +6,8 @@ summaries from one fused pass over the samples (kernels/sc_detect.py), then
 a selection -- local energy gate, windowed non-max suppression, threshold,
 top-K -- on the 128x smaller row arrays.  Every shape is static: up to
 `max_frames` detections with a validity mask, so the step never waits on
-the host.
+the host.  Detection and selection take an optional leading batch axis
+(the wideband receiver's channels; the JAX package vmaps instead).
 """
 
 from __future__ import annotations
@@ -46,10 +47,11 @@ def sliding_max_same(x: torch.Tensor, w: int, pad_left: int) -> torch.Tensor:
 
 
 class Detections(NamedTuple):
-    start: torch.Tensor     # (K,) int32: index of first FFT-window sample
-    fine_cfo: torch.Tensor  # (K,) float32: fractional CFO, subcarrier units
-    valid: torch.Tensor     # (K,) bool
-    peak: torch.Tensor      # (K,) float32: smoothed metric at the peak
+    # each ([B,] K)
+    start: torch.Tensor     # int32: index of first FFT-window sample
+    fine_cfo: torch.Tensor  # float32: fractional CFO, subcarrier units
+    valid: torch.Tensor     # bool
+    peak: torch.Tensor      # float32: smoothed metric at the peak
 
 
 def min_frame_gap(spec: OfdmSpec) -> int:
@@ -68,8 +70,9 @@ def _select_from_rows(
     threshold: float,
 ) -> Detections:
     """Candidate selection over the per-row summaries (see
-    kernels/sc_detect.py): local energy gate, non-max suppression at row
-    granularity, threshold, then the `max_frames` earliest survivors."""
+    kernels/sc_detect.py), each ([B,] rows): local energy gate, non-max
+    suppression at row granularity, threshold, then the `max_frames`
+    earliest survivors of each batch row."""
     cp = spec.cp_len
     # local energy scale: sliding max over ~2 symbols of row maxima; STRICT
     # > so an exactly-silent candidate never passes
@@ -94,9 +97,9 @@ def _select_from_rows(
     # the sm window [ps, ps+cp] peaks at the plateau centre ps + cp/2;
     # frame start = centre + cp - cp//2 - backoff = ps + cp - backoff
     start = order + cp - backoff
-    fine_cfo = torch.atan2(pim[idx], pre[idx]) / math.pi
+    fine_cfo = torch.atan2(pim.gather(-1, idx), pre.gather(-1, idx)) / math.pi
     return Detections(start.to(torch.int32), fine_cfo.to(torch.float32),
-                      valid, smmax[idx])
+                      valid, smmax.gather(-1, idx))
 
 
 def detect_frames(
@@ -106,7 +109,8 @@ def detect_frames(
     head: torch.Tensor | None = None,
 ) -> Detections:
     """Find up to `max_frames` frame starts in the virtual buffer
-    [head | x] (complex64; head None for x alone).  Detections come sorted
+    [head | x] (complex64, x (n,) and head (h,), or a batch of B buffers,
+    x (B, n) and head (B, h); head None for x alone).  Detections come sorted
     by position with a validity mask; positions are virtual coordinates.
     `start` points a few samples inside the CP before sync word 1's FFT
     window (the golden model's ISI backoff).  The threshold is the spec's
