@@ -30,17 +30,32 @@ in order -- any failure raises and the script exits non-zero:
   7. scan     512-channel power scan on 2^23-sample blocks: the tone
               channels must be the strongest, as on the CPU; pfb must have
               been launched at 512 channels
-  8. report   one JSON line of per-kernel results, the nvidia-smi line, and
+  8. radio    the full-duplex radio at the headline spec (block 2^25,
+              K = 480): 448 PDUs of 1-252 bytes per push, TX -> channel
+              (25 dB, CFO 0.05) -> RX one push later, drained with empty
+              inputs; every accepted PDU must come back exactly once with
+              its payload and crc_ok, hard/pilot_phase over 3 timed trials
+              and soft/simpledfe once (LLR signs = the wire bits); one push
+              under sync-debug "error"; sc_detect and gather launched
+  9. sync     the Schmidl-Cox metric on 4096 captures x 6144 samples of a
+              port-TX frame at 3, 10 and 20 dB, CFO 0.2: the fine-CFO
+              variance within 0.6-1.8 x the Moose formula; 16 captures card
+              vs CPU; sc_metric launched by schmidl_cox; moving_sum on
+              2^25 real and complex samples vs float64 window sums, the
+              only caller of scan here
+ 10. report   one JSON line of per-kernel results, the nvidia-smi line, and
               the final {"ok": true, ...} line
 """
 
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -56,12 +71,20 @@ from tpu_ofdm_torch.kernels import gather as kgather
 from tpu_ofdm_torch.kernels import pfb as kpfb
 from tpu_ofdm_torch.kernels import psd as kpsd
 from tpu_ofdm_torch.kernels import sc_detect as kdetect
+from tpu_ofdm_torch.kernels import sc_metric as kmetric
+from tpu_ofdm_torch.kernels import scan as kscan
+from tpu_ofdm_torch.modem.radio import ofdm_radio
 from tpu_ofdm_torch.modem.rx import rx_block
 from tpu_ofdm_torch.modem.rx_stream import (collect_frames, history_len,
                                             rx_stream_block)
 from tpu_ofdm_torch.modem.wideband import (collect_wideband_frames,
                                            wideband_rx_block)
-from tpu_ofdm_torch.ops.sync import _select_from_rows
+from tpu_ofdm_torch.modem.tx import tx_frame
+from tpu_ofdm_torch.modem.tx_stream import TxStreamIn, empty_tx_in
+from tpu_ofdm_torch.ops.channel import channel_block
+from tpu_ofdm_torch.ops.sync import (_select_from_rows,
+                                     coarse_sliding_max_same, moving_sum,
+                                     schmidl_cox)
 from tpu_ofdm_torch.spectrum import (channelizer_block, log_pwr_fft_block,
                                      spectrum_probe_block, waterfall_block)
 from tpu_ofdm_torch.spectrum.channelizer import (lowpass_taps,
@@ -108,10 +131,32 @@ SOURCES = {
             "tpu_ofdm/kernels/pfb.py:252 _pfb_pallas_wide"),
     "psd": ("tpu_ofdm_torch/csrc/psd.cu",
             "tpu_ofdm/kernels/psd.py:125 _build_call"),
+    "scan": ("tpu_ofdm_torch/csrc/scan.cu",
+             "tpu_ofdm/kernels/scan.py:82 _cumsum_rows_pallas"),
+    "sc_metric": ("tpu_ofdm_torch/csrc/sc_metric.cu",
+                  "tpu_ofdm/kernels/sc_metric.py:133 _sc_pallas"),
 }
 WRAPPERS = {"sc_detect": kdetect.sc_detect_rows,
             "gather": kgather.gather_windows,
-            "pfb": kpfb.channelize_fused, "psd": kpsd.psd_fused}
+            "pfb": kpfb.channelize_fused, "psd": kpsd.psd_fused,
+            "scan": kscan.cumsum, "sc_metric": kmetric.sc_sliding_metric}
+
+# phase 3: the scan and sc_metric kernels' shapes ((L, shape) for sc_metric;
+# a row of BLOCK samples is the headline block with its frames)
+SCAN_SHAPES = [(1, BLOCK), (3, BLOCK), (4096, 6144)]
+METRIC_CASES = [(32, (1, BLOCK)), (32, (4096, 6144)), (128, (2, 1 << 20)),
+                (192, (2, 1 << 20))]
+
+# phase 8: the radio at the headline spec, bench.py's density
+RADIO_PDUS = 448         # per push, of SLOTS = 480 TX slots
+RADIO_PUSHES = 4         # pushes that carry PDUs, then RADIO_DRAIN empty ones
+RADIO_DRAIN = 2          # one push of air delay + the RX history (3072 < S)
+RADIO_SNR, RADIO_CFO = 25.0, 0.05   # tests/test_tx_stream.py:49-50
+
+# phase 9: tests/test_cfo_stats.py's spec and captures, at 4096 trials
+SYNC_TRIALS, SYNC_N, SYNC_P0 = 4096, 6144, 1024
+SYNC_SNRS = (3.0, 10.0, 20.0)
+SYNC_CFO = 0.2
 
 
 def log(*a):
@@ -324,6 +369,8 @@ def phase_kernels(dev, tag: str) -> list[dict]:
                    "ms": ms_g, "plain_ms": ms_g_plain},
         "pfb": check_pfb(dev, tag),
         "psd": check_psd(dev, tag),
+        "scan": check_scan(dev, tag),
+        "sc_metric": check_sc_metric(dev, tag),
     }
     return kernels
 
@@ -484,6 +531,95 @@ def check_psd(dev, tag: str) -> dict:
             f"plain {times[N][1]:.4f} ms  [{tag}]")
     return {"max_abs_err": err, "ms": times[1024][0],
             "plain_ms": times[1024][1]}
+
+
+def check_scan(dev, tag: str) -> dict:
+    """cumsum against its float64 plain version at (1, 2^25), (3, 2^25)
+    (the moving_sums shape) and (4096, 6144), on Gaussian samples of mean
+    0.25, so the prefix drifts.  Both sides round a float64 sum to float32
+    once, so the bar is one float32 ulp plus the float64 sums' own
+    difference: |got - want| <= 2^-23 |want| + 1e-10 * sum_{i<=t} |x_i|
+    at every t (the worst ratio is printed).  Then
+    kernel and plain times; the kernels line takes (1, 2^25), since torch's
+    float64 cumsum slows far more than 3x on three such rows."""
+    err = 0.0
+    times = {}
+    for i, shape in enumerate(SCAN_SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(80 + i)
+        x = torch.randn(shape, generator=gen, device=dev) + 0.25
+        got = kscan.cumsum(x)
+        want = kscan.cumsum_plain(x)
+        bar = (2.0 ** -23 * want.double().abs()
+               + 1e-10 * torch.cumsum(x.abs().double(), dim=-1))
+        d = (got.double() - want.double()).abs()
+        ratio = (d / bar).max().item()
+        if not ratio <= 1.0:
+            raise AssertionError(f"scan {shape}: worst t at {ratio:.3g} of "
+                                 "its bar 2^-23 |want| + 1e-10 sum |x_i|")
+        e = d.max().item()
+        err = max(err, e)
+        times[shape] = (cuda_ms(lambda: kscan.cumsum(x), 20),
+                        cuda_ms(lambda: kscan.cumsum_plain(x), 5))
+        log(f"  scan {shape}: max abs err {e:.3g}, worst t at {ratio:.3g} of "
+            f"its bar; kernel {times[shape][0]:.4f} ms, plain "
+            f"{times[shape][1]:.4f} ms  [{tag}]")
+    ms, plain_ms = times[SCAN_SHAPES[0]]
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def pair_energy(r, L: int) -> torch.Tensor:
+    """E[d] = sum_{q<2L} |r[d+q]|^2 = R1 + R2 of the window pair at d,
+    float64, length n - 2L + 1."""
+    c = torch.cumsum(r.abs().double() ** 2, -1)
+    W = c[..., L - 1:] - torch.cat([c.new_zeros((*c.shape[:-1], 1)),
+                                    c[..., :-L]], -1)  # sum_{q<L} |r[j+q]|^2
+    return W[..., :-L] + W[..., L:]
+
+
+def check_sc_metric(dev, tag: str) -> dict:
+    """sc_sliding_metric against its float64 plain version at L 32 on the
+    headline block (448 golden frames over noise, 2^25) and on (4096, 6144)
+    captures, and at L 128 and 192 on (2, 2^20).  Bars relative to the
+    window pair's energy E = R1 + R2 (|P| <= E / 2): |dP|, |dR| <= 1e-5 E,
+    and |dM| <= 1e-4 (E/R) (E/R + 2M), what those bars allow M with a 10x
+    margin.  Then kernel and plain times."""
+    err = 0.0
+    times = {}
+    spec = HEADLINE.spec
+    frame = golden_frame(spec)
+    for L, shape in METRIC_CASES:
+        if shape[1] == BLOCK:
+            r = staged_blocks(spec, 1, dev, seed=5)[0]
+        else:
+            r = noisy_buffers(shape[0], shape[1], seed=L + shape[0], dev=dev)
+            add_frames(r, frame, list(range(1024, shape[1] - len(frame),
+                                            max(shape[1] // 8,
+                                                len(frame) + 7))))
+        P, R, M = kmetric.sc_sliding_metric(r, L)
+        Pw, Rw, Mw = kmetric.sc_sliding_metric_plain(r, L)
+        E = pair_energy(r, L)
+        q = E / Rw.double()
+        bars = {"P": (P - Pw).abs().double() / (1e-5 * E),
+                "R": (R - Rw).abs().double() / (1e-5 * E),
+                "M": (M - Mw).abs().double() / (1e-4 * q * (q + 2 * Mw))}
+        worst = {k: v.max().item() for k, v in bars.items()}
+        if not all(w <= 1.0 for w in worst.values()):
+            raise AssertionError(f"sc_metric L {L} {shape}: worst ratios to "
+                                 f"the bars {worst}")
+        e = max((P - Pw).abs().max().item(), (R - Rw).abs().max().item(),
+                (M - Mw).abs().max().item())
+        err = max(err, e)
+        if L == 32:
+            times[shape] = (
+                cuda_ms(lambda: kmetric.sc_sliding_metric(r, L), 20),
+                cuda_ms(lambda: kmetric.sc_sliding_metric_plain(r, L), 3))
+        t = (f"; kernel {times[shape][0]:.4f} ms, plain "
+             f"{times[shape][1]:.4f} ms" if L == 32 else "")
+        log(f"  sc_metric L {L} {shape}: max abs err {e:.3g}, worst ratio "
+            f"to the bars P {worst['P']:.3g} R {worst['R']:.3g} M "
+            f"{worst['M']:.3g}{t}  [{tag}]")
+    ms, plain_ms = times[METRIC_CASES[0][1]]
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
 def tone(n: int, k: int, period: int, dev, amp: float = 1.0) -> torch.Tensor:
@@ -769,6 +905,257 @@ def phase_scan(dev, tag: str) -> dict:
         f"{e:.3g}  [{tag}]")
     return {"launches": launches}
 
+# -- 8. full-duplex radio loopback --------------------------------------------
+
+def radio_traffic(spec, dev, seed: int):
+    """RADIO_PUSHES input batches of SLOTS slots, the first RADIO_PDUS of
+    each holding a PDU of 1-252 random bytes (lengths and bytes from
+    `seed`), staged on the device; returns (inputs, PDUs per push)."""
+    rng = np.random.RandomState(seed)
+    cap = spec.max_payload_bytes - 4
+    inputs, pdus = [], []
+    for i in range(RADIO_PUSHES):
+        lens = rng.randint(1, cap + 1, RADIO_PDUS)
+        pay = np.zeros((SLOTS, cap), np.uint8)
+        msgs = []
+        for k, n in enumerate(lens):
+            msgs.append(rng.randint(0, 256, n).astype(np.uint8).tobytes())
+            pay[k, :n] = np.frombuffer(msgs[-1], np.uint8)
+        ln = np.zeros(SLOTS, np.int32)
+        ln[:RADIO_PDUS] = lens
+        fn = (i * RADIO_PDUS + np.arange(SLOTS)).astype(np.int32)
+        inputs.append(TxStreamIn(*(torch.as_tensor(a, device=dev) for a in (
+            pay, ln, fn, np.arange(SLOTS) < RADIO_PDUS))))
+        pdus.append(msgs)
+    return inputs, pdus
+
+
+def radio_trial(ex, chan, inputs, empty, dev):
+    """One loopback run from a reset radio and channel: each push's TX
+    block goes through the channel and into the RX half on the next push.
+    Ends with a readback; returns (seconds, outputs)."""
+    ex.reset()
+    chan.reset()
+    air = torch.zeros(BLOCK, dtype=torch.complex64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for ti in inputs + [empty] * RADIO_DRAIN:
+        out = ex.push((ti, air))
+        air = chan.push(out.tx.samples)
+        outs.append(out)
+    torch.stack([o.rx.result.valid.sum() for o in outs]).sum().item()
+    return time.perf_counter() - t0, outs
+
+
+def check_loopback(outs, pdus, soft: bool, what: str) -> int:
+    """Every queued PDU was accepted and came back exactly once, in order,
+    with its payload, frame number and crc_ok; with soft output, the LLR
+    signs of every frame equal its wire bits (payload + CRC32)."""
+    acc = torch.stack([o.tx.accepted for o in outs[:RADIO_PUSHES]]).cpu()
+    if not bool(acc[:, :RADIO_PDUS].all()) or bool(acc[:, RADIO_PDUS:].any()):
+        raise AssertionError(f"{what}: TX refused a PDU or accepted an "
+                             "empty slot")
+    frames = collect_frames([o.rx for o in outs], block_size=BLOCK,
+                            hist=history_len(HEADLINE.spec))
+    want = [(m, (i * RADIO_PDUS + k) % 4096)
+            for i, msgs in enumerate(pdus) for k, m in enumerate(msgs)]
+    got = [(f["payload"], f["frame_num"]) for f in frames]
+    if got != want or not all(f["crc_ok"] for f in frames):
+        bad = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                   min(len(got), len(want)))
+        raise AssertionError(f"{what}: {len(got)} frames back for "
+                             f"{len(want)} PDUs, first mismatch at {bad}")
+    if soft:
+        for f in frames:
+            wire = f["payload"] + zlib.crc32(f["payload"]).to_bytes(4, "little")
+            bits = np.unpackbits(np.frombuffer(wire, np.uint8))
+            if not np.array_equal(f["llr"] < 0, bits.astype(bool)):
+                raise AssertionError(f"{what}: LLR signs differ from the "
+                                     f"bits of frame {f['frame_num']}")
+    return len(frames)
+
+
+def radio_executor(dev, **options) -> StreamExecutor:
+    """The radio at the headline spec; options go to ofdm_radio."""
+    sc = StreamConfig(block_size=BLOCK, max_frames_per_block=SLOTS)
+    return StreamExecutor(ofdm_radio(HEADLINE.spec, sc, **options), BLOCK,
+                          device=dev)
+
+
+def radio_channel(dev) -> StreamExecutor:
+    return StreamExecutor(channel_block(seed=91, snr_db=RADIO_SNR,
+                                        cfo=RADIO_CFO,
+                                        fft_len=HEADLINE.spec.fft_len),
+                          BLOCK, device=dev)
+
+
+def phase_radio(dev, tag: str) -> dict:
+    spec = HEADLINE.spec
+    inputs, pdus = radio_traffic(spec, dev, seed=90)
+    empty = empty_tx_in(spec, SLOTS, dev)
+    chan = radio_channel(dev)
+    ex = radio_executor(dev)
+    radio_trial(ex, chan, inputs, empty, dev)               # warm-up
+    names = ("sc_detect", "gather")
+    reset_launches(*names)
+    trials = [radio_trial(ex, chan, inputs, empty, dev) for _ in range(3)]
+    launches = read_launches("radio", *names)
+    for i, (_, outs) in enumerate(trials):
+        n = check_loopback(outs, pdus, False, f"radio hard trial {i}")
+    pushes = RADIO_PUSHES + RADIO_DRAIN
+    dt = min(t for t, _ in trials)
+    sps = pushes * BLOCK / dt
+    log(f"radio hard/pilot_phase: {n} of {n} PDUs back once with payload "
+        f"and crc_ok in each of 3 trials; trials "
+        f"{[round(t, 4) for t, _ in trials]} s for {pushes} pushes; "
+        f"{sps / 1e6:.1f} Msamples/s per direction  [{tag}]")
+
+    air = chan.push(trials[0][1][-1].tx.samples)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ex.push((inputs[0], air))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("radio: one push under sync debug mode 'error': no host sync")
+
+    soft = radio_executor(dev, equalizer="simpledfe", output="soft")
+    radio_trial(soft, chan, inputs, empty, dev)             # warm-up
+    t_soft, outs = radio_trial(soft, chan, inputs, empty, dev)
+    n = check_loopback(outs, pdus, True, "radio soft/simpledfe")
+    log(f"radio soft/simpledfe: {n} PDUs back with crc_ok, LLR signs = the "
+        f"wire bits on every frame; {t_soft:.4f} s for {pushes} pushes, "
+        f"{pushes * BLOCK / t_soft / 1e6:.1f} Msamples/s per direction  "
+        f"[{tag}]")
+    return {"msamples_per_s": sps / 1e6, "launches": launches}
+
+
+# -- 9. sync diagnostics: CFO estimator statistics, moving sums ---------------
+
+def moose_var(L: int, rho: float) -> float:
+    """Fine-CFO variance in subcarrier units at per-sample SNR rho
+    (Moose 1994, eq. 12; tests/test_cfo_stats.py)."""
+    return (1.0 / (math.pi ** 2 * L)) * (1.0 / rho + 1.0 / (2.0 * rho ** 2))
+
+
+def sync_captures(frame, fft_len, cp, snr_db, dev, seed):
+    """SYNC_TRIALS captures of SYNC_N samples: the frame at SYNC_P0 with
+    CFO SYNC_CFO, plus noise at snr_db against the sync symbol's power.
+    Returns (captures, rho, readout index of P at the plateau)."""
+    ph = np.exp(2j * np.pi * SYNC_CFO * np.arange(len(frame)) / fft_len)
+    sig = np.zeros(SYNC_N, np.complex64)
+    sig[SYNC_P0:SYNC_P0 + len(frame)] = frame * ph
+    d = SYNC_P0 + cp
+    es = float(np.mean(np.abs(sig[d:d + fft_len]) ** 2))
+    sigma2 = es / 10 ** (snr_db / 10)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.randn((SYNC_TRIALS, SYNC_N, 2), generator=gen, device=dev)
+    r = torch.view_as_complex(z * math.sqrt(sigma2 / 2))
+    return r + torch.as_tensor(sig, device=dev), es / sigma2, d
+
+
+def compare_sync(spec, r, got, want, what: str):
+    """schmidl_cox on the card vs on the CPU, where it runs sc_metric's
+    float64 plain version: check_sc_metric's bars, 1e-5 E for P and R
+    (E = R1 + R2) and 1e-4 (E/R) (E/R + 2M) for M.  M is compared where
+    both routes make the same gate decision; a position where they differ
+    must lie within 1e-4 of the local energy of the gate's threshold (R
+    itself is good to 1e-5 E <= ~2e-5 of it)."""
+    Pc, Rc, Mc = got.corr.cpu(), got.energy.cpu(), got.metric.cpu()
+    E = pair_energy(r, spec.fft_len // 2)
+    worst = {}
+    for name, a, b in (("P", Pc, want.corr), ("R", Rc, want.energy)):
+        worst[name] = ((a - b).abs().double() / (1e-5 * E)).max().item()
+    local = coarse_sliding_max_same(want.energy, 2 * spec.sym_len + 1)
+    near = (want.energy - 0.05 * local).abs() <= 1e-4 * local
+    flip = (Mc > 0) != (want.metric > 0)
+    if bool((flip & ~near).any()):
+        raise AssertionError(f"{what}: gate decisions differ away from the "
+                             "threshold")
+    same = ~flip
+    q = E / want.energy.double()
+    bar = 1e-4 * q * (q + 2 * want.metric.double())
+    worst["M"] = ((Mc - want.metric).abs().double() / bar)[same].max().item()
+    if not all(w <= 1.0 for w in worst.values()):
+        raise AssertionError(f"{what}: worst ratios to the bars {worst}")
+    log(f"  {what}: worst ratio to the bars P {worst['P']:.3g} R "
+        f"{worst['R']:.3g} M {worst['M']:.3g}; {int(flip.sum())} gate "
+        "decisions differ, all at the threshold")
+
+
+def check_moving_sum(x, w: int, what: str) -> float:
+    """moving_sum on the card against window sums taken directly in
+    float64, per real component.  The card's sum is the difference of two
+    float32 roundings of float64 prefixes C, itself rounded once, so the
+    bar is 2^-23 (|C[d+w-1]| + |C[d-1]| + |S[d]|): twice the ulps at the
+    prefix's magnitude."""
+    got = moving_sum(x, w)
+    parts = ([(got.real, x.real), (got.imag, x.imag)] if x.is_complex()
+             else [(got, x)])
+    ratio = e = 0.0
+    for g, v in parts:
+        C = torch.cumsum(v.double(), -1)
+        lag = torch.cat([C.new_zeros(1), C[: C.shape[-1] - w]])
+        S = C[w - 1:] - lag
+        d = (g.double() - S).abs()
+        bar = 2.0 ** -23 * (C[w - 1:].abs() + lag.abs() + S.abs()) + 1e-30
+        ratio = max(ratio, (d / bar).max().item())
+        e = max(e, d.max().item())
+    if not ratio <= 1.0:
+        raise AssertionError(f"{what}: {ratio:.3g} of its bar")
+    log(f"  {what}: max abs err {e:.3g} against float64 window sums, worst "
+        f"at {ratio:.3g} of its bar")
+    return e
+
+
+def phase_sync(dev, tag: str) -> dict:
+    spec = HEADLINE.spec
+    L = spec.fft_len // 2
+    cap = spec.max_payload_bytes - 4
+    payload = torch.zeros(cap, dtype=torch.uint8, device=dev)
+    payload[:32] = torch.arange(32, device=dev)
+    fr = tx_frame(spec, payload, 32)
+    frame = fr.samples[: int(fr.n_samples)].cpu().numpy()
+    gold = golden_frame(spec, bytes(range(32)))
+    if len(frame) != len(gold) or np.abs(frame - gold).max() > 1e-5:
+        raise AssertionError("sync: port TX frame differs from the golden")
+    names = ("sc_metric", "scan")
+    reset_launches(*names)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for snr_db in SYNC_SNRS:
+        r, rho, d = sync_captures(frame, spec.fft_len, spec.cp_len, snr_db,
+                                  dev, seed=int(snr_db))
+        sm = schmidl_cox(spec, r)
+        err = (torch.angle(sm.corr[:, d]) / math.pi - SYNC_CFO).double()
+        var = err.var(unbiased=False).item()
+        mean = err.mean().item()
+        want = moose_var(L, rho)
+        if not 0.6 * want < var < 1.8 * want:
+            raise AssertionError(f"sync {snr_db} dB: var {var:.4g}, Moose "
+                                 f"{want:.4g}")
+        if not abs(mean) < 4 * math.sqrt(var / SYNC_TRIALS) + 1e-3:
+            raise AssertionError(f"sync {snr_db} dB: bias {mean:.3g}")
+        log(f"sync {snr_db:g} dB: fine-CFO var {var:.4g} = "
+            f"{var / want:.3f} x Moose over {SYNC_TRIALS} captures, bias "
+            f"{mean:.2g}")
+        r16 = r[:16].cpu()
+        compare_sync(spec, r16, type(sm)(*(v[:16] for v in sm)),
+                     schmidl_cox(spec, r16),
+                     f"schmidl_cox {snr_db:g} dB, 16 captures card vs CPU")
+    gen = torch.Generator(device=dev).manual_seed(95)
+    x = torch.randn(1 << 25, generator=gen, device=dev) ** 2
+    z = torch.view_as_complex(torch.randn((1 << 25, 2), generator=gen,
+                                          device=dev))
+    check_moving_sum(x, L, "moving_sum 2^25 float32")
+    check_moving_sum(z, L, "moving_sum 2^25 complex64")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches("sync", *names)
+    log(f"sync: 3 x {SYNC_TRIALS} captures and 2 moving sums of 2^25, with "
+        f"the CPU comparisons, in {dt:.4f} s  [{tag}]")
+    return {"launches": launches}
+
 
 def main():
     smi = phase_device()
@@ -776,7 +1163,8 @@ def main():
     phase_build()
     kernels = phase_kernels(dev, smi)
     runs = [phase_main(dev, smi), phase_wideband(dev, smi),
-            phase_spectrum(dev, smi), phase_scan(dev, smi)]
+            phase_spectrum(dev, smi), phase_scan(dev, smi),
+            phase_radio(dev, smi), phase_sync(dev, smi)]
     report = []
     for name, res in kernels.items():
         source, replaces = SOURCES[name]

@@ -4,8 +4,9 @@
 
 Needs one CUDA card and this checkout; imports no JAX.  Builds each cell
 with chip_smoke.py's shapes and inputs -- the headline stream, the config-4
-wideband receiver, the spectrum probe, logpwrfft and waterfall, and the
-512-channel scan -- and measures, per push:
+wideband receiver, the spectrum probe, logpwrfft and waterfall, the
+512-channel scan, the radio loopback (hard and soft), and the sync metric
+on the CFO-statistics captures -- and measures, per push:
 
   wall ms      host clock over three windows of 10 pushes, each ended by
                torch.cuda.synchronize(), without the profiler (min-max)
@@ -34,9 +35,34 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 from tpu_ofdm_torch.config import StreamConfig
 from tpu_ofdm_torch.modem.rx_stream import rx_stream_block
+from tpu_ofdm_torch.ops.sync import schmidl_cox
 from tpu_ofdm_torch.stream.executor import StreamExecutor
 
 STEPS = 5                # profiled pushes per cell
+
+
+class Loopback:
+    """One push of the radio cell: the radio takes a batch of PDUs and the
+    air block, and its TX block goes through the channel to become the next
+    push's air block (chip_smoke.py phase 8, at steady state)."""
+
+    def __init__(self, dev, **options):
+        self.radio = cs.radio_executor(dev, **options)
+        self.chan = cs.radio_channel(dev)
+        self.air = torch.zeros(cs.BLOCK, dtype=torch.complex64, device=dev)
+
+    def push(self, tx_in):
+        out = self.radio.push((tx_in, self.air))
+        self.air = self.chan.push(out.tx.samples)
+        return out
+
+
+class SyncCell:
+    """One push of the sync cell: schmidl_cox over the 4096 captures of
+    chip_smoke.py phase 9 at 10 dB."""
+
+    def push(self, r):
+        return schmidl_cox(cs.HEADLINE.spec, r)
 
 
 def cells(dev):
@@ -54,6 +80,17 @@ def cells(dev):
                StreamExecutor(make(), cs.PSD_BLOCK, device=dev), block)
     yield ("scan512", StreamExecutor(cs.scanner(), cs.SCAN_BLOCK, device=dev),
            cs.scan_blocks(dev)[0])
+    tx_in = cs.radio_traffic(cs.HEADLINE.spec, dev, seed=90)[0][0]
+    yield "radio_loopback", Loopback(dev), tx_in
+    yield ("radio_loopback_soft",
+           Loopback(dev, equalizer="simpledfe", output="soft"), tx_in)
+    spec = cs.HEADLINE.spec
+    payload = torch.zeros(spec.max_payload_bytes - 4, dtype=torch.uint8)
+    payload[:32] = torch.arange(32)
+    frame = cs.tx_frame(spec, payload, 32)
+    frame = frame.samples[: int(frame.n_samples)].numpy()
+    yield "sync_cfo_stats", SyncCell(), cs.sync_captures(
+        frame, spec.fft_len, spec.cp_len, 10.0, dev, seed=10)[0]
 
 
 def host_windows(ex, x, n=10, windows=3):

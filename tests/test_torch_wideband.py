@@ -155,11 +155,18 @@ def test_batched_gather_matches_vmapped_dynamic_slice():
 
 
 def test_other_equalizers_raise():
+    """Unknown equalizer or output names raise; "simpledfe" and "soft" run
+    (tests/test_torch_radio.py holds them against the JAX package)."""
     head, x = _rows(4)
-    with pytest.raises(NotImplementedError):
-        trx.rx_block(SPEC, x, 4, head=head, equalizer="simpledfe")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         trx.rx_block(SPEC, x, 4, head=head, equalizer="")
+    with pytest.raises(ValueError):
+        trx.rx_block(SPEC, x, 4, head=head, equalizer="zf")
+    with pytest.raises(ValueError):
+        trx.rx_block(SPEC, x, 4, head=head, output="bits")
+    res = trx.rx_block(SPEC, x, 4, head=head, equalizer="simpledfe",
+                       output="soft")
+    assert res.frames.llr.shape[:2] == res.valid.shape
 
 
 def test_batch_mismatch_rejected():

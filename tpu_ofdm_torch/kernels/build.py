@@ -44,6 +44,8 @@ _SIGNATURES = {
     "gather_launch": [_P, _LL, _LL, _P, _LL, _LL, _I, _P, _I, _I, _P, _P],
     "pfb_launch": [_P, _LL, _P, _LL, _P, _I, _I, _P, _P],
     "psd_launch": [_P, _LL, _P, _I, _P, _P],
+    "scan_launch": [_P, _LL, _LL, _P, _LL, _P, _P],
+    "sc_metric_launch": [_P, _LL, _LL, _I, _P, _P, _P, _P],
 }
 
 
@@ -135,6 +137,9 @@ def library() -> KernelLibrary:
     lib.tpu_ofdm_error_string.restype = ctypes.c_char_p
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(lib, so, seconds, log)
+
+
+ANY_RANK = tuple(range(1, 17))  # check_vector's ndims for "any rank >= 1"
 
 
 def check_vector(t, name: str, dtype: torch.dtype,

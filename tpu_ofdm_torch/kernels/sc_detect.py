@@ -36,7 +36,7 @@ def tiebreak(t: torch.Tensor) -> torch.Tensor:
     return (t & 0xFFFF).to(torch.float32) * 1e-7
 
 
-def _window_sums(s: torch.Tensor, w: int) -> torch.Tensor:
+def window_sums(s: torch.Tensor, w: int) -> torch.Tensor:
     """Valid-mode trailing sums of width w, from a float64 cumsum cast back
     to float32.  A float32 cumsum over a 2^25-sample block loses several
     percent of a window sum; float64 keeps the plain version a trustworthy
@@ -59,14 +59,14 @@ def sc_detect_rows_plain(x: torch.Tensor, L: int, cp: int,
     a = torch.view_as_real(v[..., :-L])       # x[u - L]
     b = torch.view_as_real(v[..., L:])        # x[u]
     ar, ai, br, bi = a[..., 0], a[..., 1], b[..., 0], b[..., 1]
-    p_re = _window_sums(ar * br + ai * bi, L)   # valid mode: index t - (2L-1)
-    p_im = _window_sums(ar * bi - ai * br, L)
-    r2 = _window_sums(br * br + bi * bi, L)
-    r1 = _window_sums(ar * ar + ai * ai, L)
+    p_re = window_sums(ar * br + ai * bi, L)    # valid mode: index t - (2L-1)
+    p_im = window_sums(ar * bi - ai * br, L)
+    r2 = window_sums(br * br + bi * bi, L)
+    r1 = window_sums(ar * ar + ai * ai, L)
     den = r1 * r2
     p2 = p_re * p_re + p_im * p_im
     M = torch.where(den > 0, (p2 / den.clamp(min=1e-12)).clamp(max=2.0), 0.0)
-    sm = _window_sums(M, W) / W                 # index t - t_sm
+    sm = window_sums(M, W) / W                  # index t - t_sm
 
     rows = -(-nv // ROW)
     npad = rows * ROW

@@ -13,9 +13,10 @@ here is written for a batch (K, ...) of slots; every reduction runs over
 one slot's own axes.  Everything is fixed capacity plus validity masks, so
 the whole block is enqueued on the device without waiting on the host.
 
-This slice implements the pilot-phase equalizer with hard decisions (the
-JAX package's defaults), so FrameResult has no soft-output `llr` field, and
-rx_block raises for any other `equalizer`.
+`equalizer` is "pilot_phase" (the default) or "simpledfe"; `output` is
+"hard" (the default) or "soft", which adds max-log LLRs of the payload bits
+scaled by each frame's post-equalization noise estimate (EVM^2), computed
+on the device.
 
 rx_block also takes a batch of B buffers (B, n) -- the wideband receiver's
 channels, which the JAX package vmaps over -- and then every result field
@@ -33,9 +34,11 @@ from tpu_ofdm_torch.config import HEADER_BITS, OfdmSpec
 from tpu_ofdm_torch.kernels.gather import gather_windows
 from tpu_ofdm_torch.ops import carrier_alloc
 from tpu_ofdm_torch.ops.chanest import coarse_int_cfo, ls_estimate, roll_bins
-from tpu_ofdm_torch.ops.constellation import demap_hard, evm as evm_op
+from tpu_ofdm_torch.ops.constellation import demap_hard, demap_soft
+from tpu_ofdm_torch.ops.constellation import evm as evm_op
 from tpu_ofdm_torch.ops.crc import check_crc32
-from tpu_ofdm_torch.ops.equalizer import equalize_pilot_phase
+from tpu_ofdm_torch.ops.equalizer import (equalize_pilot_phase,
+                                          equalize_simpledfe)
 from tpu_ofdm_torch.ops.header import parse_header_bits
 from tpu_ofdm_torch.ops.sync import derotate, detect_frames
 from tpu_ofdm_torch.ops.transform import ofdm_fft
@@ -54,6 +57,9 @@ class FrameResult(NamedTuple):
     sym_mask: torch.Tensor     # (K, sym_capacity) bool: valid payload symbols
     sync_q: torch.Tensor       # (K,) float32: sync1 spectral-support quality
     sync_ok: torch.Tensor      # (K,) bool: sync_q above acquisition threshold
+    llr: torch.Tensor          # (K, sym_capacity*bps) float32 max-log LLRs of
+    #   the payload bits (positive => bit 0; 0 beyond the wire bits), scaled
+    #   by the frame's EVM^2; (K, 0) when output="hard"
 
 
 @functools.lru_cache(maxsize=64)
@@ -62,13 +68,26 @@ def _bins(spec: OfdmSpec, device: torch.device):
             torch.as_tensor(spec.occupied_bins, device=device))
 
 
-def demod_frame(spec: OfdmSpec, frames: torch.Tensor) -> FrameResult:
+EQUALIZERS = ("pilot_phase", "simpledfe")
+OUTPUTS = ("hard", "soft")
+
+
+def _check_options(equalizer: str, output: str) -> None:
+    if equalizer not in EQUALIZERS or output not in OUTPUTS:
+        raise ValueError(f"equalizer {equalizer!r} / output {output!r}: "
+                         f"expected one of {EQUALIZERS} / {OUTPUTS}")
+
+
+def demod_frame(spec: OfdmSpec, frames: torch.Tensor,
+                equalizer: str = "pilot_phase",
+                output: str = "hard") -> FrameResult:
     """Demodulate a batch of start-aligned, CFO-derotated frame windows
     (K, >= max_frame_len) complex64.
 
     frames[k, 0] is the detected FFT-window start of sync word 1 (a few
     samples inside its CP; the circular shift this causes is absorbed into
     the channel estimate as a linear phase)."""
+    _check_options(equalizer, output)
     K = frames.shape[0]
     dev = frames.device
     n_syms = spec.max_frame_ofdm_syms
@@ -97,7 +116,9 @@ def demod_frame(spec: OfdmSpec, frames: torch.Tensor) -> FrameResult:
     cap = spec.max_payload_bytes
     wire_len = wire_len.clamp(0, cap)
 
-    pay_eq = equalize_pilot_phase(spec, grids[:, 3:], H)        # (K, P, N)
+    equalize = (equalize_simpledfe if equalizer == "simpledfe"
+                else equalize_pilot_phase)
+    pay_eq = equalize(spec, grids[:, 3:], H)                    # (K, P, N)
     syms = carrier_alloc.serialize(spec, pay_eq)                # (K, sym_cap)
 
     bps = spec.bits_per_symbol
@@ -116,6 +137,14 @@ def demod_frame(spec: OfdmSpec, frames: torch.Tensor) -> FrameResult:
     crc_ok = check_crc32(wire, wire_len) & hdr_ok & sync_ok
     e = evm_op(syms, spec.modulation, mask=sym_mask)
 
+    if output == "soft":
+        noise_var = (e.to(torch.float32) ** 2).clamp(min=1e-6)
+        llr = demap_soft(syms, spec.modulation, noise_var)
+        llr = torch.where(torch.arange(llr.shape[1], device=dev) < wire_bits,
+                          llr, 0.0)
+    else:
+        llr = torch.zeros((K, 0), dtype=torch.float32, device=dev)
+
     return FrameResult(
         payload=wire,
         payload_len=(wire_len - 4).clamp(min=0),
@@ -128,6 +157,7 @@ def demod_frame(spec: OfdmSpec, frames: torch.Tensor) -> FrameResult:
         sym_mask=sym_mask,
         sync_q=sync_q.to(torch.float32),
         sync_ok=sync_ok,
+        llr=llr,
     )
 
 
@@ -146,6 +176,7 @@ def rx_block(
     own_hi: int | None = None,
     head: torch.Tensor | None = None,
     equalizer: str = "pilot_phase",
+    output: str = "hard",
 ) -> RxBlockResult:
     """Detect and demodulate up to `max_frames` frames in the virtual
     buffer [head | x] (complex64; x (n,) with head (h,), or a batch x
@@ -156,10 +187,9 @@ def rx_block(
     coordinates.
 
     Ownership window [own_lo, own_hi): only detections whose start falls in
-    it are accepted (the streaming receiver's exactly-once rule)."""
-    if equalizer != "pilot_phase":
-        raise NotImplementedError(
-            f"equalizer {equalizer!r}: the port has only 'pilot_phase'")
+    it are accepted (the streaming receiver's exactly-once rule).
+    `equalizer` and `output` as in demod_frame."""
+    _check_options(equalizer, output)
     nv = x.shape[-1] + (0 if head is None else head.shape[-1])
     if own_hi is None:
         own_hi = nv
@@ -171,7 +201,7 @@ def rx_block(
     wins = derotate(gather_windows(x, gstart, F, head=head), det.fine_cfo,
                     spec.fft_len)
     lead = wins.shape[:-1]                      # ([B,] K)
-    flat = demod_frame(spec, wins.reshape(-1, F))
+    flat = demod_frame(spec, wins.reshape(-1, F), equalizer, output)
     frames = FrameResult(*(f.reshape(*lead, *f.shape[1:]) for f in flat))
     # a slot is valid only if owned AND acquisition confirmed AND header ok
     valid = owned & frames.sync_ok & frames.hdr_ok

@@ -37,7 +37,9 @@ def history_len(spec: OfdmSpec) -> int:
     return -(-need // 1024) * 1024
 
 
-def rx_stream_block(spec: OfdmSpec, stream_cfg: StreamConfig) -> Block:
+def rx_stream_block(spec: OfdmSpec, stream_cfg: StreamConfig,
+                    equalizer: str = "pilot_phase",
+                    output: str = "hard") -> Block:
     H = history_len(spec)
     S = stream_cfg.block_size
     K = stream_cfg.max_frames_per_block
@@ -49,7 +51,8 @@ def rx_stream_block(spec: OfdmSpec, stream_cfg: StreamConfig) -> Block:
 
     def apply(state, x):
         hist, step = state
-        res = rx_block(spec, x, max_frames=K, own_lo=0, own_hi=S, head=hist)
+        res = rx_block(spec, x, max_frames=K, own_lo=0, own_hi=S, head=hist,
+                       equalizer=equalizer, output=output)
         if S >= H:
             new_hist = x[S - H:].clone()
         else:
@@ -81,7 +84,9 @@ def collect_frames(outs, block_size: int | None = None,
                    hist: int | None = None) -> list[dict]:
     """Flatten a list of RxStreamOut (one per step) into one dict per valid
     frame, on the host.  With block_size and hist given, each frame carries
-    "abs_start", the absolute sample index of its detected start."""
+    "abs_start", the absolute sample index of its detected start; with a
+    soft-output receiver, "llr" holds the LLRs of the wire bytes (payload
+    and CRC32)."""
     frames = []
     for o in outs:
         valid = o.result.valid.cpu().numpy()
@@ -94,6 +99,7 @@ def collect_frames(outs, block_size: int | None = None,
             "evm", "int_cfo")}
         starts = o.result.starts.cpu().numpy()
         fine_cfo = o.result.fine_cfo.cpu().numpy()
+        llr = f.llr.cpu().numpy() if f.llr.shape[-1] else None
         for i in np.nonzero(valid)[0]:
             plen = int(host["payload_len"][i])
             rec_start = int(starts[i])
@@ -111,4 +117,6 @@ def collect_frames(outs, block_size: int | None = None,
                 "fine_cfo": float(fine_cfo[i]),
                 "abs_start": abs_start,
             })
+            if llr is not None:
+                frames[-1]["llr"] = llr[i][: (plen + 4) * 8]
     return frames

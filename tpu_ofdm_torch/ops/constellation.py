@@ -1,5 +1,5 @@
-"""Constellation points, hard demapping and EVM (counterpart of
-tpu_ofdm/ops/constellation.py).
+"""Constellation points, mapping, hard and soft (max-log LLR) demapping,
+and EVM (counterpart of tpu_ofdm/ops/constellation.py).
 
 Bit conventions match tests/golden/golden_ofdm.py: symbol value =
 stream-order bits, MSB first; unit average power.
@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from tpu_ofdm_torch.config import BITS_PER_SYMBOL
-from tpu_ofdm_torch.utils.bits import ungroup_bits
+from tpu_ofdm_torch.utils.bits import group_bits, ungroup_bits
 
 _GRAY_2 = np.array([-1.0, 1.0])
 _GRAY_4 = np.array([-3.0, -1.0, 3.0, 1.0])
@@ -42,15 +42,36 @@ def points_np(modulation: str) -> np.ndarray:
     raise ValueError(f"unknown modulation {modulation!r}")
 
 
+@functools.lru_cache(maxsize=None)
+def bit_masks_np(modulation: str) -> np.ndarray:
+    """(k, n_points) bool: bit b of the point index is 1."""
+    k = BITS_PER_SYMBOL[modulation]
+    idx = np.arange(2**k)
+    return np.stack([((idx >> (k - 1 - b)) & 1).astype(bool)
+                     for b in range(k)])
+
+
 @functools.lru_cache(maxsize=64)
-def _points(modulation: str, device: torch.device) -> torch.Tensor:
+def points(modulation: str, device: torch.device) -> torch.Tensor:
+    """points_np(modulation) on `device` (cached)."""
     return torch.as_tensor(points_np(modulation), device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _bit_masks(modulation: str, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(bit_masks_np(modulation), device=device)
+
+
+def map_bits(bits: torch.Tensor, modulation: str) -> torch.Tensor:
+    """Bits (..., n*k) -> complex64 symbols (..., n)."""
+    k = BITS_PER_SYMBOL[modulation]
+    return points(modulation, bits.device)[group_bits(bits, k)]
 
 
 def hard_decisions(symbols: torch.Tensor, modulation: str) -> torch.Tensor:
     """Min-distance point indices (..., n) -> int64 symbol values.
     torch.argmin returns the first minimum on ties, as jnp.argmin does."""
-    pts = _points(modulation, symbols.device)
+    pts = points(modulation, symbols.device)
     d2 = (symbols[..., None] - pts).abs() ** 2
     return torch.argmin(d2, dim=-1)
 
@@ -61,10 +82,29 @@ def demap_hard(symbols: torch.Tensor, modulation: str) -> torch.Tensor:
     return ungroup_bits(hard_decisions(symbols, modulation), k)
 
 
+def demap_soft(symbols: torch.Tensor, modulation: str,
+               noise_var: torch.Tensor | float = 1.0) -> torch.Tensor:
+    """Max-log LLRs (..., n*k) of symbols (..., n); positive => bit 0 is
+    more likely.  noise_var is a float or one value per row, shape (...)."""
+    k = BITS_PER_SYMBOL[modulation]
+    pts = points(modulation, symbols.device)
+    masks = _bit_masks(modulation, symbols.device)           # (k, P)
+    d2 = (symbols[..., None] - pts).abs() ** 2                # (..., n, P)
+    d2 = d2[..., None, :]                                     # (..., n, 1, P)
+    d0 = torch.where(masks, float("inf"), d2).amin(-1)        # (..., n, k)
+    d1 = torch.where(masks, d2, float("inf")).amin(-1)
+    if isinstance(noise_var, torch.Tensor):
+        nv = noise_var.clamp(min=1e-12)[..., None, None]
+    else:
+        nv = max(noise_var, 1e-12)
+    llr = (d1 - d0) / nv
+    return llr.reshape(*symbols.shape[:-1], symbols.shape[-1] * k)
+
+
 def evm(symbols: torch.Tensor, modulation: str, mask=None) -> torch.Tensor:
     """RMS error-vector magnitude vs hard decisions, reduced over the last
     axis only: (..., n) -> (...), one value per frame slot."""
-    pts = _points(modulation, symbols.device)
+    pts = points(modulation, symbols.device)
     hard = pts[hard_decisions(symbols, modulation)]
     err = (symbols - hard).abs() ** 2
     if mask is not None:

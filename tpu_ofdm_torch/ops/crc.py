@@ -113,6 +113,13 @@ def crc32(data: torch.Tensor, length: torch.Tensor | None = None
     return reg ^ initc[length.clamp(0, n)] ^ 0xFFFFFFFF
 
 
+def append_crc32_bytes(crc: torch.Tensor) -> torch.Tensor:
+    """CRC32 values (...) -> their 4 little-endian bytes (..., 4) uint8
+    (the golden model's append_crc32)."""
+    shifts = torch.arange(0, 32, 8, device=crc.device)
+    return ((crc.to(torch.int64)[..., None] >> shifts) & 0xFF).to(torch.uint8)
+
+
 def check_crc32(data: torch.Tensor, wire_len: torch.Tensor) -> torch.Tensor:
     """True where data[:wire_len-4] has CRC32 == data[wire_len-4:wire_len]
     (little-endian); data (..., cap) uint8, wire_len (...) int."""

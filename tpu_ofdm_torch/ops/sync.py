@@ -1,13 +1,18 @@
-"""Schmidl-Cox frame detection and CFO derotation (counterpart of the
-detection half of tpu_ofdm/ops/sync.py).
+"""Schmidl-Cox frame detection, the diagnostic sync metric, and CFO
+derotation (counterpart of tpu_ofdm/ops/sync.py).
 
-Structure, as in the JAX package: per-row (ROW = 128 samples) candidate
+Detection, as in the JAX package: per-row (ROW = 128 samples) candidate
 summaries from one fused pass over the samples (kernels/sc_detect.py), then
 a selection -- local energy gate, windowed non-max suppression, threshold,
 top-K -- on the 128x smaller row arrays.  Every shape is static: up to
 `max_frames` detections with a validity mask, so the step never waits on
 the host.  Detection and selection take an optional leading batch axis
 (the wideband receiver's channels; the JAX package vmaps instead).
+
+The diagnostic half -- `schmidl_cox` (full-length P, R, M; the CFO
+estimator statistics read it) and `moving_sum` -- runs the sc_metric and
+scan kernels respectively on CUDA tensors and their plain versions on the
+CPU.
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from tpu_ofdm_torch.config import OfdmSpec
+from tpu_ofdm_torch.kernels import scan
 from tpu_ofdm_torch.kernels.sc_detect import ROW, sc_detect_rows
+from tpu_ofdm_torch.kernels.sc_metric import sc_sliding_metric
 
 
 def sliding_max(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -44,6 +51,60 @@ def sliding_max_same(x: torch.Tensor, w: int, pad_left: int) -> torch.Tensor:
     (out-of-range treated as -inf)."""
     padded = F.pad(x, (pad_left, w - 1 - pad_left), value=float("-inf"))
     return sliding_max(padded, w)
+
+
+def coarse_sliding_max_same(x: torch.Tensor, w: int,
+                            g: int = 128) -> torch.Tensor:
+    """Block-granular same-length sliding max: out[i] is the max over a
+    window that contains the centred w-window and spans at most w + 3g
+    samples (maxima per g-block, the log-doubling ladder on the block
+    array, broadcast back)."""
+    n = x.shape[-1]
+    nb = -(-n // g)
+    xb = F.pad(x, (0, nb * g - n), value=float("-inf"))
+    rowmax = xb.reshape(*x.shape[:-1], nb, g).amax(-1)
+    k = -(-(w // 2 + g) // g)
+    wm = sliding_max_same(rowmax, 2 * k + 1, pad_left=k)
+    full = wm[..., None].expand(*wm.shape, g)
+    return full.reshape(*x.shape[:-1], nb * g)[..., :n]
+
+
+def moving_sum(x: torch.Tensor, w: int) -> torch.Tensor:
+    """Valid-mode moving sum along the last axis: out[d] = sum x[d:d+w],
+    length n - w + 1, from one cumsum (the scan kernel on CUDA).  Complex
+    input gives complex64; float64 input is summed as float32, as in the
+    JAX package."""
+    if x.is_complex():
+        re, im = scan.moving_sums([x.real, x.imag], w)
+        return torch.complex(re, im)
+    return scan.moving_sums([x], w)[0]
+
+
+class SyncMetric(NamedTuple):
+    metric: torch.Tensor   # M(d), float32, length n - fft_len + 1
+    corr: torch.Tensor     # P(d), complex64, same length
+    energy: torch.Tensor   # R(d), float32, same length
+
+
+def _cap(M: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """M capped at 2 and zeroed where R = 0 (genuine M <= ~1; in exact
+    silence R is 0 while |P|^2 may hold cancellation residue)."""
+    return torch.where(R > 0.0, M.clamp(max=2.0), 0.0)
+
+
+def schmidl_cox(spec: OfdmSpec, r: torch.Tensor) -> SyncMetric:
+    """The Schmidl-Cox metric over a sample block (..., n), last axis:
+    sc_sliding_metric (the kernel on CUDA, its float64 plain version on the
+    CPU), with M capped at 2 and zeroed where R = 0 (the JAX package's CPU
+    route; its TPU kernel leaves M uncapped, ROADMAP sec. C), then zeroed
+    where R is below 5% of the local energy (a sliding max over ~2
+    symbols)."""
+    P, R, M = sc_sliding_metric(r.to(torch.complex64).contiguous(),
+                                spec.fft_len // 2)
+    M = _cap(M, R)
+    local = coarse_sliding_max_same(R, 2 * spec.sym_len + 1)
+    M = torch.where(R > 0.05 * local, M, 0.0)
+    return SyncMetric(M, P, R)
 
 
 class Detections(NamedTuple):

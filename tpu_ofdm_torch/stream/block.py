@@ -29,6 +29,10 @@ class Block:
     init: Callable[[Any], Any]
     apply: Callable[[Any, Any], tuple[Any, Any]]
     latency: int = 0
+    # False for blocks whose input is not one block of samples (the
+    # streaming TX takes PDU slot batches); the executor then skips its
+    # block-size and device checks.
+    stream_input: bool = True
 
 
 def stateless(fn: Callable[[Any], Any]) -> Block:

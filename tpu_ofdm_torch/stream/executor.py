@@ -53,13 +53,15 @@ class StreamExecutor:
         self.wall_time = 0.0
 
     def push(self, block_samples: torch.Tensor) -> Any:
-        """Process one time-block of exactly block_size samples."""
-        if block_samples.shape[-1] != self.block_size:
-            raise ValueError(f"block of {block_samples.shape[-1]} samples, "
-                             f"expected {self.block_size}")
-        if block_samples.device != self.device:
-            raise ValueError(f"block on {block_samples.device}, executor on "
-                             f"{self.device}")
+        """Process one time-block: exactly block_size samples, or the
+        block's own input when it is not a stream of samples."""
+        if self.block.stream_input:
+            if block_samples.shape[-1] != self.block_size:
+                raise ValueError(f"block of {block_samples.shape[-1]} "
+                                 f"samples, expected {self.block_size}")
+            if block_samples.device != self.device:
+                raise ValueError(f"block on {block_samples.device}, "
+                                 f"executor on {self.device}")
         t0 = time.perf_counter()
         self.state, out = self.block.apply(self.state, block_samples)
         self.samples_in += self.block_size

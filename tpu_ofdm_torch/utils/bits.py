@@ -13,6 +13,26 @@ def _msb_weights(width: int, device) -> torch.Tensor:
     return 1 << torch.arange(width - 1, -1, -1, dtype=torch.int64, device=device)
 
 
+def bytes_to_bits(data: torch.Tensor) -> torch.Tensor:
+    """uint8 array (..., n) -> uint8 bits (..., n*8), MSB of each byte
+    first."""
+    return ungroup_bits(data, 8)
+
+
+def uint_to_bits(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Unsigned integers (...) -> uint8 MSB-first bits (..., width)."""
+    shifts = torch.arange(width - 1, -1, -1, dtype=torch.int64, device=x.device)
+    return ((x.to(torch.int64)[..., None] >> shifts) & 1).to(torch.uint8)
+
+
+def group_bits(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """Bit stream (..., n*k) -> int64 symbol values (..., n), MSB-first
+    within each k-bit group."""
+    n = bits.shape[-1] // k
+    g = bits[..., : n * k].reshape(*bits.shape[:-1], n, k).to(torch.int64)
+    return (g * _msb_weights(k, bits.device)).sum(-1)
+
+
 def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
     """Bit array (..., n*8) -> uint8 array (..., n), MSB-first."""
     n = bits.shape[-1] // 8
@@ -28,6 +48,4 @@ def bits_to_uint(bits: torch.Tensor, width: int) -> torch.Tensor:
 
 def ungroup_bits(vals: torch.Tensor, k: int) -> torch.Tensor:
     """Symbol values (..., n) -> uint8 bit stream (..., n*k), MSB-first."""
-    shifts = torch.arange(k - 1, -1, -1, dtype=torch.int64, device=vals.device)
-    bits = ((vals.to(torch.int64)[..., None] >> shifts) & 1).to(torch.uint8)
-    return bits.reshape(*vals.shape[:-1], vals.shape[-1] * k)
+    return uint_to_bits(vals, k).reshape(*vals.shape[:-1], vals.shape[-1] * k)
