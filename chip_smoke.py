@@ -184,6 +184,44 @@ def add_frames(bufs, frame, positions):
     bufs[:, idx] += f
 
 
+# the card's published peaks (H100 SXM): device memory and float32 outside
+# the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for a kernel's work: the larger
+    of the bytes it must move (each input read once, each output written
+    once) over the memory rate and its float32 operations over the peak
+    rate, in ms, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def detect_bound(B: int, nv: int) -> dict:
+    """sc_detect over B virtual buffers of nv samples: 8 bytes in per
+    sample, six float32 summaries out per 128-sample row; ~25 flops per
+    sample (|v|^2, the lag product, the window and boxcar sums, M)."""
+    rows = -(-nv // kdetect.ROW)
+    return bound(B * (8 * nv + 24 * rows), 25 * B * nv)
+
+
+def window_union(starts, F: int) -> int:
+    """Samples covered by the windows [s, s + F): the input a gather must
+    read once."""
+    s = np.sort(np.asarray(starts, dtype=np.int64).ravel())
+    covered = np.minimum(np.diff(s), F).sum() if len(s) > 1 else 0
+    return int(covered + (F if len(s) else 0))
+
+
+def log_bound(what: str, ms: float, b: dict) -> None:
+    log(f"  {what}: bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+        f"{b['bound_ms'] / ms:.3f} of it")
+
+
 def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -317,6 +355,8 @@ def phase_kernels(dev, tag: str) -> list[dict]:
         lambda: kdetect.sc_detect_rows_plain(x, L, 16, head=head), 3)
     log(f"  sc_detect at 2^25 + {H}: kernel {ms_det:.4f} ms, plain "
         f"{ms_det_plain:.4f} ms  [{tag}]")
+    b_det = detect_bound(1, H + BLOCK)
+    log_bound(f"sc_detect at 2^25 + {H}", ms_det, b_det)
 
     # gather: K = 480 windows of F = 2000 across the head/x seam
     F = spec.max_frame_len
@@ -338,6 +378,10 @@ def phase_kernels(dev, tag: str) -> list[dict]:
         lambda: kgather.gather_windows_plain(x, starts, F, head=head), 10)
     log(f"  gather K {SLOTS} F {F}: kernel {ms_g:.4f} ms, plain "
         f"{ms_g_plain:.4f} ms  [{tag}]")
+    b_g = bound(8 * window_union(starts.cpu().numpy(), F) + 4 * SLOTS
+                + 8 * SLOTS * F, 0)
+    log_bound(f"gather K {SLOTS} F {F}", ms_g, b_g)
+    lib_g = gather_library(x, F, dev, tag)
 
     # the whole rx_block on the card against the CPU (plain versions)
     small = noisy_buffers(1, 1 << 16, seed=7, dev=dev)
@@ -363,16 +407,38 @@ def phase_kernels(dev, tag: str) -> list[dict]:
     err_b_det, err_b_g = check_batched(dev, tag)
     kernels = {
         "sc_detect": {"max_abs_err": max(err_det, err_b_det), "ms": ms_det,
-                      "plain_ms": ms_det_plain},
+                      "plain_ms": ms_det_plain, **b_det,
+                      "library_ms": None},
         "gather": {"max_abs_err": max((got - ref).abs().max().item(),
                                       err_b_g),
-                   "ms": ms_g, "plain_ms": ms_g_plain},
+                   "ms": ms_g, "plain_ms": ms_g_plain, **b_g,
+                   "library_ms": lib_g},
         "pfb": check_pfb(dev, tag),
         "psd": check_psd(dev, tag),
         "scan": check_scan(dev, tag),
         "sc_metric": check_sc_metric(dev, tag),
     }
     return kernels
+
+
+def gather_library(x, F: int, dev, tag: str) -> float:
+    """The one-call yardstick of gather: x.unfold(-1, F, 1)[starts] on the
+    2^25 block alone (no head), K = SLOTS windows.  It must equal the
+    kernel; returns its time."""
+    rng = np.random.RandomState(5)
+    starts = torch.as_tensor(np.sort(rng.randint(0, BLOCK - F + 1, SLOTS)),
+                             dtype=torch.int32, device=dev)
+    idx = starts.long()
+    got = kgather.gather_windows(x, starts, F)
+    want = x.unfold(-1, F, 1)[idx]
+    if not torch.equal(got, want):
+        raise AssertionError("gather: kernel differs from x.unfold(...)"
+                             "[starts]")
+    ms = cuda_ms(lambda: kgather.gather_windows(x, starts, F), 50)
+    ms_lib = cuda_ms(lambda: x.unfold(-1, F, 1)[idx], 50)
+    log(f"  gather K {SLOTS} F {F} without head: kernel {ms:.4f} ms, "
+        f"x.unfold(-1, F, 1)[starts] {ms_lib:.4f} ms, equal  [{tag}]")
+    return ms_lib
 
 
 def check_batched(dev, tag: str) -> tuple[float, float]:
@@ -419,6 +485,7 @@ def check_batched(dev, tag: str) -> tuple[float, float]:
     ms_plain = cuda_ms(lambda: kdetect.sc_detect_rows_plain(
         x, L, spec.cp_len, head=head), 3)
     log(f"  {what}: kernel {ms:.4f} ms, plain {ms_plain:.4f} ms  [{tag}]")
+    log_bound(what, ms, detect_bound(WB_CHANS, H + n))
 
     F = spec.max_frame_len
     starts = sel[0].start.clamp(0, H + n - F).contiguous()
@@ -486,7 +553,7 @@ def check_pfb(dev, tag: str) -> dict:
         err = max(err, check_close(
             torch.cat([a, b]), want, 2e-4,
             f"pfb N {N} over 2^20 in two carried steps"))
-    times = {}
+    times, bounds = {}, {}
     for N, n in ((WB_CHANS, BLOCK), (SCAN_CHANS, SCAN_BLOCK)):
         poly = torch.as_tensor(polyphase_decompose(lowpass_taps(N), N),
                                device=dev)
@@ -501,8 +568,15 @@ def check_pfb(dev, tag: str) -> dict:
                             3))
         log(f"  pfb N {N} at {n} samples: kernel {times[N][0]:.4f} ms, "
             f"plain {times[N][1]:.4f} ms  [{tag}]")
+        J = poly.shape[0]
+        # x in and out, the FIR's lookback in the tail, the taps; a complex
+        # times real multiply-add per tap, ~5 log2 N flops of FFT
+        bounds[N] = bound(16 * n + 8 * (J - 1) * N + 4 * J * N,
+                          n * (4 * J + 5 * math.log2(N)))
+        log_bound(f"pfb N {N} at {n} samples", times[N][0], bounds[N])
     return {"max_abs_err": err, "ms": times[WB_CHANS][0],
-            "plain_ms": times[WB_CHANS][1]}
+            "plain_ms": times[WB_CHANS][1], **bounds[WB_CHANS],
+            "library_ms": None}
 
 
 def check_psd(dev, tag: str) -> dict:
@@ -529,8 +603,12 @@ def check_psd(dev, tag: str) -> dict:
                     cuda_ms(lambda: kpsd.psd_fused_plain(x, N), 10))
         log(f"  psd N {N} at 2^22 samples: kernel {times[N][0]:.4f} ms, "
             f"plain {times[N][1]:.4f} ms  [{tag}]")
+    # 8 bytes in and 4 out per sample, the window; window product, FFT and
+    # |.|^2 flops
+    b = bound(12 * PSD_BLOCK + 4 * 1024, PSD_BLOCK * (5 + 5 * 10))
+    log_bound("psd N 1024 at 2^22 samples", times[1024][0], b)
     return {"max_abs_err": err, "ms": times[1024][0],
-            "plain_ms": times[1024][1]}
+            "plain_ms": times[1024][1], **b, "library_ms": None}
 
 
 def check_scan(dev, tag: str) -> dict:
@@ -564,7 +642,28 @@ def check_scan(dev, tag: str) -> dict:
             f"its bar; kernel {times[shape][0]:.4f} ms, plain "
             f"{times[shape][1]:.4f} ms  [{tag}]")
     ms, plain_ms = times[SCAN_SHAPES[0]]
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    n = math.prod(SCAN_SHAPES[0])
+    b = bound(8 * n, n)
+    log_bound(f"scan {SCAN_SHAPES[0]}", ms, b)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": scan_library(dev, tag)}
+
+
+def scan_library(dev, tag: str) -> float:
+    """The one-call yardstick of scan: torch.cumsum in float32 at
+    SCAN_SHAPES[0], held to scan's bar (the worst ratio is printed; it is
+    no gate, as float32 cumsum is not meant to meet it); returns its
+    time."""
+    gen = torch.Generator(device=dev).manual_seed(80)
+    x = torch.randn(SCAN_SHAPES[0], generator=gen, device=dev) + 0.25
+    want = kscan.cumsum_plain(x).double()
+    bar = (2.0 ** -23 * want.abs()
+           + 1e-10 * torch.cumsum(x.abs().double(), dim=-1))
+    ratio = ((torch.cumsum(x, -1).double() - want).abs() / bar).max().item()
+    ms = cuda_ms(lambda: torch.cumsum(x, -1), 20)
+    log(f"  scan {SCAN_SHAPES[0]}: torch.cumsum float32 {ms:.4f} ms, worst "
+        f"t at {ratio:.3g} of scan's bar  [{tag}]")
+    return ms
 
 
 def pair_energy(r, L: int) -> torch.Tensor:
@@ -619,7 +718,14 @@ def check_sc_metric(dev, tag: str) -> dict:
             f"to the bars P {worst['P']:.3g} R {worst['R']:.3g} M "
             f"{worst['M']:.3g}{t}  [{tag}]")
     ms, plain_ms = times[METRIC_CASES[0][1]]
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    L, shape = METRIC_CASES[0]
+    n, nd = math.prod(shape), shape[0] * (shape[1] - 2 * L + 1)
+    # 8 bytes in per sample; P (8), R (4) and M (4) out per window pair;
+    # ~20 flops per sample
+    b = bound(8 * n + 16 * nd, 20 * n)
+    log_bound(f"sc_metric L {L} {shape}", ms, b)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
 
 
 def tone(n: int, k: int, period: int, dev, amp: float = 1.0) -> torch.Tensor:
@@ -837,7 +943,7 @@ def phase_spectrum(dev, tag: str) -> dict:
     launches = read_launches("spectrum", "psd")
     on_cpu = {}
     for name, make in SPECTRUM_PATHS.items():
-        ex = StreamExecutor(make(), PSD_BLOCK)
+        ex = StreamExecutor(make(), PSD_BLOCK, device="cpu")
         on_cpu[name] = [ex.push(b.cpu()) for b in blocks][-1]
 
     probe, probe_cpu = on_card["probe"], on_cpu["probe"]
@@ -893,7 +999,7 @@ def phase_scan(dev, tag: str) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches("scan", "pfb")
-    ex_cpu = StreamExecutor(scanner(), SCAN_BLOCK)
+    ex_cpu = StreamExecutor(scanner(), SCAN_BLOCK, device="cpu")
     pwr_cpu = torch.stack([ex_cpu.push(b.cpu()) for b in blocks])
     e = check_power(pwr.cpu(), pwr_cpu, "scan, card vs CPU")
     top = sorted(pwr.sum(0).topk(len(SCAN_TONES)).indices.tolist())
@@ -1172,7 +1278,7 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(r["launches"].get(name, 0) for r in runs),
-            **res})
+            **res, "share": res["bound_ms"] / res["ms"]})
     log(json.dumps({"kernels": report}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from tpu_ofdm.config import OfdmConfig
+from tpu_ofdm_torch import config as tconfig
 from tpu_ofdm.ops import channel as jch
 from tpu_ofdm.stream import executor as jex
 from tpu_ofdm_torch.ops import channel as tch
@@ -63,7 +64,8 @@ def test_channel_block_without_noise_is_chunk_invariant(taps):
     and one channel_model pass over the whole stream agree."""
     x = _signal(8 * 1024, seed=2)
     kw = dict(cfo=0.05, fft_len=64, taps=taps, phase=0.3)
-    got = tex.StreamExecutor(tch.channel_block(**kw), 1024).run(
+    got = tex.StreamExecutor(tch.channel_block(**kw), 1024,
+                             device="cpu").run(
         torch.as_tensor(x))
     got = torch.cat(got).numpy()
     want = np.concatenate([np.asarray(b) for b in jex.StreamExecutor(
@@ -94,7 +96,7 @@ def test_awgn_statistics():
     stream: the noise's mean is 0 and its power 1/10 of the signal power,
     each within 2% of the noise's rms over 2^18 samples; the stream is a
     function of the seed."""
-    sig = tch.ofdm_signal_power(OfdmConfig(fft_len=64).spec)
+    sig = tch.ofdm_signal_power(tconfig.OfdmConfig(fft_len=64).spec)
     assert sig == jch.ofdm_signal_power(OfdmConfig(fft_len=64).spec)
     z = torch.zeros(1 << 18, dtype=torch.complex64)
 

@@ -2,6 +2,8 @@
 
 - it must import without JAX: the GPU machine has no JAX, so a stray
   import would break the port there while every CPU test still passed;
+  nor any module of the JAX package, numpy-only ones included;
+- its entry points go to the card unless the caller names the CPU;
 - the rule of tests/test_docs_drift.py, applied to the port: a rate or
   bandwidth figure in its source must carry a date and the card it was
   measured on (H100) within the 3 lines above it.
@@ -11,6 +13,11 @@ import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
+import torch
+
+from tpu_ofdm_torch import config as tconfig
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "tpu_ofdm_torch"
@@ -38,6 +45,56 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """Not even a numpy-only module of tpu_ofdm: the port keeps its own
+    copies (tpu_ofdm_torch/config.py)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import tpu_ofdm_torch\n"
+        "for m in pkgutil.walk_packages(tpu_ofdm_torch.__path__, "
+        "'tpu_ofdm_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'tpu_ofdm' or "
+        "m.startswith('tpu_ofdm.'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _executor():
+    from tpu_ofdm_torch.modem.rx_stream import rx_stream_block
+    from tpu_ofdm_torch.stream.executor import StreamExecutor
+    spec = tconfig.OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
+    sc = tconfig.StreamConfig(block_size=1024, max_frames_per_block=2)
+    return StreamExecutor(rx_stream_block(spec, sc), 1024).device
+
+
+def _empty_tx_in():
+    from tpu_ofdm_torch.modem.tx_stream import empty_tx_in
+    spec = tconfig.OfdmConfig(modulation="qpsk").spec
+    return empty_tx_in(spec, 2).valid.device
+
+
+def _queue_tx_in():
+    from tpu_ofdm_torch.modem.tx_stream import queue_tx_in
+    spec = tconfig.OfdmConfig(modulation="qpsk").spec
+    return queue_tx_in(spec, 2, [b"to the card"])[0].valid.device
+
+
+@pytest.mark.parametrize("entry", [_executor, _empty_tx_in, _queue_tx_in],
+                         ids=["StreamExecutor", "empty_tx_in", "queue_tx_in"])
+def test_entry_points_default_to_the_card(entry):
+    """With no device named, an entry point goes to cuda: where torch has
+    no card it raises torch's own error, never falls back to the CPU."""
+    if torch.cuda.is_available():
+        assert entry().type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            entry()
 
 
 def test_chip_smoke_imports_no_jax():

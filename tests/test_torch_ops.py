@@ -2,6 +2,8 @@
 inputs.  Bits, bytes and integers must be identical; complex values agree
 to atol 1e-5 (float32 arithmetic in a different order)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +34,7 @@ from tpu_ofdm_torch.ops import transform as ttr
 from tpu_ofdm_torch.utils import bits as tbits
 
 SPEC = jconfig.OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
+TSPEC = tconfig.OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
 MODS = ["bpsk", "qpsk", "qam16", "qam64"]
 
 
@@ -43,10 +46,55 @@ def _np(t):
     return np.array(t)   # a writable copy: torch warns on read-only arrays
 
 
-def test_config_is_shared():
-    assert tconfig.OfdmConfig is jconfig.OfdmConfig
-    assert tconfig.StreamConfig is jconfig.StreamConfig
+# BASELINE.json configs 1-5, as bench/curves.py, bench/wideband.py and
+# bench/scaling.py configure them, and fft 64 / 256 at the defaults
+SPEC_CASES = {
+    "config1": dict(fft_len=64, cp_len=16, modulation="bpsk",
+                    max_payload_bytes=64),
+    "config2": dict(fft_len=256, cp_len=64, modulation="qpsk",
+                    max_payload_bytes=256),
+    "config3": dict(fft_len=64, cp_len=16, modulation="qam16",
+                    max_payload_bytes=64),
+    "config4": dict(fft_len=64, cp_len=16, modulation="qpsk",
+                    max_payload_bytes=64),
+    "config5": dict(fft_len=64, cp_len=16, modulation="qpsk",
+                    max_payload_bytes=64),
+    "fft64": dict(fft_len=64),
+    "fft64_rolloff": dict(fft_len=64, modulation="qam64", rolloff_len=4),
+    "fft256": dict(fft_len=256, cp_len=32),
+}
+
+
+def _assert_spec_equal(t, j):
+    assert set(vars(t)) == set(vars(j))
+    for name, want in vars(j).items():
+        got = getattr(t, name)
+        if name == "cfg":
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        elif isinstance(want, np.ndarray):
+            assert got.dtype == want.dtype, name
+            assert np.array_equal(got, want), name
+        else:
+            assert got == want, name
+    for wire_bytes in (1, 17, 252):
+        assert t.frame_len(wire_bytes) == j.frame_len(wire_bytes)
+
+
+@pytest.mark.parametrize("kw", SPEC_CASES.values(), ids=SPEC_CASES.keys())
+def test_port_spec_equals_jax_spec(kw):
+    """The port's own config builds the same spec as the JAX package's."""
+    t = tconfig.OfdmConfig(**kw).spec
+    j = jconfig.OfdmConfig(**kw).spec
+    assert t is tconfig.OfdmConfig(**kw).spec          # cached per config
+    _assert_spec_equal(t, j)
     assert tconfig.HEADER_BITS == jconfig.HEADER_BITS == 32
+    for name in ("HEADER_LEN_BITS", "HEADER_NUM_BITS", "HEADER_CRC_BITS",
+                 "BITS_PER_SYMBOL"):
+        assert getattr(tconfig, name) == getattr(jconfig, name)
+    assert (dataclasses.asdict(tconfig.StreamConfig())
+            == dataclasses.asdict(jconfig.StreamConfig()))
+    r = tconfig.replace(tconfig.OfdmConfig(**kw), sync_threshold=0.5)
+    assert r.sync_threshold == 0.5 and isinstance(r, tconfig.OfdmConfig)
 
 
 def test_table_builders_match():
@@ -60,7 +108,7 @@ def test_table_builders_match():
     for m in MODS:
         np.testing.assert_array_equal(tcon.points_np(m), jcon.points_np(m))
     for shift in (1, 4):
-        np.testing.assert_array_equal(tce._rolled_refs_np(SPEC, shift),
+        np.testing.assert_array_equal(tce._rolled_refs_np(TSPEC, shift),
                                       jce._rolled_refs_np(SPEC, shift))
 
 
@@ -160,11 +208,11 @@ def test_fft_serialize_equalize():
     np.testing.assert_allclose(g_t.numpy(), _np(g_j), atol=1e-5)
     grids = _np(g_j)
     np.testing.assert_array_equal(
-        tca.serialize(SPEC, torch.as_tensor(grids)).numpy(),
+        tca.serialize(TSPEC, torch.as_tensor(grids)).numpy(),
         _np(jca.serialize(SPEC, jnp.asarray(grids))))
     H = _cplx(rng, 3, 64)
     H[0, 5] = 0                                   # exercises the |H| guard
-    got = teq.equalize_pilot_phase(SPEC, torch.as_tensor(grids),
+    got = teq.equalize_pilot_phase(TSPEC, torch.as_tensor(grids),
                                    torch.as_tensor(H))
     want = jeq.equalize_pilot_phase(SPEC, jnp.asarray(grids), jnp.asarray(H))
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5)
@@ -175,7 +223,7 @@ def test_chanest():
     shifts = np.array([-4, -1, 0, 2, 4], np.int32)
     sw1 = np.stack([np.roll(SPEC.sync_word1_freq, s) for s in shifts])
     rx1 = (sw1 + 0.1 * _cplx(rng, 5, 64)).astype(np.complex64)
-    ic_t = tce.coarse_int_cfo(SPEC, torch.as_tensor(rx1)).numpy()
+    ic_t = tce.coarse_int_cfo(TSPEC, torch.as_tensor(rx1)).numpy()
     ic_j = _np(jce.coarse_int_cfo(SPEC, jnp.asarray(rx1)))
     np.testing.assert_array_equal(ic_t, ic_j)
     np.testing.assert_array_equal(ic_t, shifts)
@@ -187,7 +235,7 @@ def test_chanest():
 
     sync2 = _cplx(rng, 5, 64)
     np.testing.assert_allclose(
-        tce.ls_estimate(SPEC, torch.as_tensor(sync2)).numpy(),
+        tce.ls_estimate(TSPEC, torch.as_tensor(sync2)).numpy(),
         _np(jce.ls_estimate(SPEC, jnp.asarray(sync2))), atol=1e-5)
 
 
@@ -206,5 +254,7 @@ def test_derotate_and_sliding_max():
             tsync.sliding_max_same(torch.as_tensor(x), w, pad_left).numpy(),
             _np(jsync.sliding_max_same(jnp.asarray(x), w, pad_left)))
     for fft_len, cp in [(64, 16), (256, 64), (1024, 256)]:
-        spec = jconfig.OfdmConfig(fft_len=fft_len, cp_len=cp).spec
-        assert tsync.min_frame_gap(spec) == jsync.min_frame_gap(spec)
+        assert (tsync.min_frame_gap(
+                    tconfig.OfdmConfig(fft_len=fft_len, cp_len=cp).spec)
+                == jsync.min_frame_gap(
+                    jconfig.OfdmConfig(fft_len=fft_len, cp_len=cp).spec))

@@ -134,7 +134,8 @@ def test_channelizer_block_matches_jax(block):
     jx = jex.StreamExecutor(jch.channelizer_block(n_chan, taps), block,
                             donate=False)
     want = np.concatenate([np.asarray(o) for o in jx.run(x, drain=True)])
-    ex = tex.StreamExecutor(tch.channelizer_block(n_chan, taps), block)
+    ex = tex.StreamExecutor(tch.channelizer_block(n_chan, taps), block,
+                            device="cpu")
     got = torch.cat(ex.run(torch.as_tensor(x), drain=True))
     _assert_close(got, want)
     np.testing.assert_array_equal(ex.state.numpy(), np.asarray(jx.state))

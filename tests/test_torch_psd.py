@@ -109,7 +109,7 @@ def test_log_pwr_fft_block_three_steps_matches_jax(fft_len):
     jx = jex.StreamExecutor(jpsd.log_pwr_fft_block(fft_len, avg_alpha=0.3),
                             S, donate=False)
     ex = tex.StreamExecutor(tpsd.log_pwr_fft_block(fft_len, avg_alpha=0.3),
-                            S)
+                            S, device="cpu")
     for i in range(3):
         want = np.asarray(jx.push(x[i * S:(i + 1) * S]))
         got = ex.push(torch.as_tensor(x[i * S:(i + 1) * S]))

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 import tests.golden.golden_ofdm as G
 from tpu_ofdm.config import OfdmConfig, StreamConfig
+from tpu_ofdm_torch import config as tconfig
 from tpu_ofdm.modem import radio as jradio
 from tpu_ofdm.modem import rx as jrx
 from tpu_ofdm.modem import rx_stream as jrs
@@ -33,13 +34,14 @@ from tpu_ofdm_torch.ops.channel import channel_block
 from tpu_ofdm_torch.stream import executor as tex
 
 SPEC = OfdmConfig(modulation="qpsk", max_payload_bytes=64).spec
+TSPEC = tconfig.OfdmConfig(modulation="qpsk", max_payload_bytes=64).spec
 
 
 def _push_both(jx, ex, msgs, k, frame_num0):
     """Queue the same PDUs on the JAX and the port TX, push once each and
     check the outputs agree; returns the port's output."""
     jin, _ = jts.queue_tx_in(SPEC, k, msgs, frame_num0)
-    tin, _ = tts.queue_tx_in(SPEC, k, msgs, frame_num0)
+    tin, _ = tts.queue_tx_in(TSPEC, k, msgs, frame_num0, device="cpu")
     want = jx.push(jin)
     got = ex.push(tin)
     np.testing.assert_array_equal(got.accepted.numpy(),
@@ -52,7 +54,8 @@ def _push_both(jx, ex, msgs, k, frame_num0):
 
 def _executors(sc):
     return (jex.StreamExecutor(jts.tx_stream_block(SPEC, sc), sc.block_size),
-            tex.StreamExecutor(tts.tx_stream_block(SPEC, sc), sc.block_size))
+            tex.StreamExecutor(tts.tx_stream_block(TSPEC, sc), sc.block_size,
+                               device="cpu"))
 
 
 def test_tx_stream_matches_jax_over_pushes():
@@ -86,8 +89,8 @@ def test_tx_stream_back_pressure_matches_jax():
         if not pending and int(out.n_pending) == 0:
             break
     assert sent == len(msgs)
-    rex = tex.StreamExecutor(trs.rx_stream_block(SPEC, StreamConfig(
-        block_size=1 << 12, max_frames_per_block=8)), 1 << 12)
+    rex = tex.StreamExecutor(trs.rx_stream_block(TSPEC, StreamConfig(
+        block_size=1 << 12, max_frames_per_block=8)), 1 << 12, device="cpu")
     frames = trs.collect_frames(rex.run(torch.cat(chunks), drain=True))
     assert sorted((f["frame_num"], f["payload"]) for f in frames) == list(
         enumerate(msgs))
@@ -121,7 +124,7 @@ def test_tx_stream_resumes_from_a_jax_carry():
         _push_both(jx, ex, msgs if i == 2 else [], 4, 4 * i)
     buf, cur = tts.carry_to_jax(ex.state)
     assert buf.dtype == np.complex64 and buf.shape == (
-        tts.pending_len(SPEC, sc),)
+        tts.pending_len(TSPEC, sc),)
     assert cur.dtype == np.int32 and int(cur) == int(np.asarray(jx.state[1]))
 
 
@@ -132,12 +135,14 @@ def _loopback(radio, n_steps, msgs, seed=3):
     """Push `msgs` into the radio, then empty inputs; each TX block goes
     through a 25 dB, CFO 0.05 channel into the RX half one push later."""
     S = RADIO_SC.block_size
-    ex = tex.StreamExecutor(radio, S)
-    ch = tex.StreamExecutor(channel_block(seed=seed, snr_db=25, cfo=0.05), S)
+    ex = tex.StreamExecutor(radio, S, device="cpu")
+    ch = tex.StreamExecutor(channel_block(seed=seed, snr_db=25, cfo=0.05), S,
+                            device="cpu")
     air = torch.zeros(S, dtype=torch.complex64)
     outs = []
     for i in range(n_steps):
-        ti = tts.queue_tx_in(SPEC, 4, msgs if i == 0 else [])[0]
+        ti = tts.queue_tx_in(TSPEC, 4, msgs if i == 0 else [],
+                             device="cpu")[0]
         out = ex.push((ti, air))
         outs.append(out.rx)
         air = ch.push(out.tx.samples)
@@ -146,9 +151,9 @@ def _loopback(radio, n_steps, msgs, seed=3):
 
 def test_radio_full_duplex_hard_and_soft():
     msgs = [b"full duplex hello %d" % i for i in range(3)]
-    n_steps = 3 + -(-trs.history_len(SPEC) // RADIO_SC.block_size) + 1
+    n_steps = 3 + -(-trs.history_len(TSPEC) // RADIO_SC.block_size) + 1
     for eq, out in (("pilot_phase", "hard"), ("simpledfe", "soft")):
-        frames = _loopback(tradio.ofdm_radio(SPEC, RADIO_SC, equalizer=eq,
+        frames = _loopback(tradio.ofdm_radio(TSPEC, RADIO_SC, equalizer=eq,
                                              output=out), n_steps, msgs)
         assert [f["payload"] for f in frames] == msgs
         assert all(f["crc_ok"] for f in frames)
@@ -173,7 +178,7 @@ def test_radio_resumes_from_a_jax_carry():
     jx = jex.StreamExecutor(jradio.ofdm_radio(SPEC, sc), 1024, donate=False)
     ti, _ = jts.queue_tx_in(SPEC, 4, msgs)
     first = jx.push((tuple(ti), np.zeros(1024, np.complex64)))
-    ex = tex.StreamExecutor(tradio.ofdm_radio(SPEC, sc), 1024)
+    ex = tex.StreamExecutor(tradio.ofdm_radio(TSPEC, sc), 1024, device="cpu")
     ex.state = tradio.carry_from_jax(jax.tree.map(np.asarray, jx.state),
                                      ex.device)
     assert int(ex.state[0][1]) > 0            # frames still pending
@@ -182,7 +187,7 @@ def test_radio_resumes_from_a_jax_carry():
     jouts, touts = [], []
     for _ in range(5):
         jo = jx.push((tuple(jts.empty_tx_in(SPEC, 4)), jair))
-        to = ex.push((tts.empty_tx_in(SPEC, 4), tair))
+        to = ex.push((tts.empty_tx_in(TSPEC, 4, "cpu"), tair))
         jouts.append(jo.rx)
         touts.append(to.rx)
         jair, tair = np.asarray(jo.tx.samples), to.tx.samples
@@ -225,11 +230,12 @@ def _windows():
 
 def test_simpledfe_and_soft_output_match_jax_demod_frame():
     spec, der, v = _windows()
+    tspec = tconfig.OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
     assert v.sum() == 5
     want = jax.tree.map(np.asarray, jax.jit(jax.vmap(
         lambda w: jrx.demod_frame(spec, w, equalizer="simpledfe",
                                   output="soft")))(jnp.asarray(der)))
-    got = trx.demod_frame(spec, torch.tensor(der), equalizer="simpledfe",
+    got = trx.demod_frame(tspec, torch.tensor(der), equalizer="simpledfe",
                           output="soft")
     for name in ("payload", "payload_len", "frame_num", "hdr_ok", "crc_ok",
                  "int_cfo", "sym_mask", "sync_ok"):
@@ -244,7 +250,7 @@ def test_simpledfe_and_soft_output_match_jax_demod_frame():
                                        * spec.n_data * 2)
     np.testing.assert_allclose(llr, jllr, rtol=1e-3,
                                atol=1e-3 * np.abs(jllr).max())
-    hard = trx.demod_frame(spec, torch.tensor(der))
+    hard = trx.demod_frame(tspec, torch.tensor(der))
     assert hard.llr.shape == (8, 0)
     np.testing.assert_array_equal(hard.payload.numpy()[v],
                                   got.payload.numpy()[v])
@@ -254,6 +260,7 @@ def test_rx_stream_soft_simpledfe_matches_jax():
     """The soft/simpledfe streaming receiver on a short stream: the same
     frames as the JAX package's, with LLRs of the wire bytes."""
     spec, der, v = _windows()
+    tspec = tconfig.OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
     sc = StreamConfig(block_size=1 << 13, max_frames_per_block=8)
     stream = np.concatenate([w[: spec.max_frame_len] for w in der[v]]
                             + [np.zeros(3000, np.complex64)])
@@ -262,7 +269,8 @@ def test_rx_stream_soft_simpledfe_matches_jax():
         jrs.rx_stream_block(spec, sc, **kw), sc.block_size).run(
         stream, drain=True))
     got = trs.collect_frames(tex.StreamExecutor(
-        trs.rx_stream_block(spec, sc, **kw), sc.block_size).run(
+        trs.rx_stream_block(tspec, sc, **kw), sc.block_size,
+        device="cpu").run(
         torch.as_tensor(stream), drain=True))
     assert len(got) == len(ref) == 5
     for a, b in zip(got, ref):

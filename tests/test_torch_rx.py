@@ -15,11 +15,13 @@ import jax.numpy as jnp
 
 import tests.golden.golden_ofdm as G
 from tpu_ofdm.config import OfdmConfig
+from tpu_ofdm_torch import config as tconfig
 from tpu_ofdm.modem import rx as jrx
 from tpu_ofdm.ops.sync import derotate as jderotate
 from tpu_ofdm_torch.modem import rx as trx
 
 SPEC = OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
+TSPEC = tconfig.OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
 K = 8
 POSITIONS = [700, 6100, 13300, 20777, 31000]
 
@@ -47,7 +49,7 @@ def _jax_rx(x, **kw):
 
 
 def _port_rx(x, head=None, **kw):
-    res = trx.rx_block(SPEC, torch.as_tensor(x), K,
+    res = trx.rx_block(TSPEC, torch.as_tensor(x), K,
                        head=None if head is None else torch.as_tensor(head),
                        **kw)
     return res
@@ -120,7 +122,7 @@ def test_demod_frame_batched_matches_vmapped_jax():
         jnp.asarray(wins), jnp.asarray(ref.fine_cfo)))
     want = jax.tree.map(np.asarray, jax.jit(jax.vmap(
         lambda w: jrx.demod_frame(SPEC, w)))(jnp.asarray(der)))
-    got = trx.demod_frame(SPEC, torch.as_tensor(der))
+    got = trx.demod_frame(TSPEC, torch.as_tensor(der))
     v = ref.valid
     assert v.sum() == len(POSITIONS)
     for name in ("payload", "payload_len", "frame_num", "hdr_ok", "crc_ok",

@@ -11,14 +11,17 @@ import torch
 
 import tests.golden.golden_ofdm as G
 from tpu_ofdm.config import OfdmConfig, StreamConfig
+from tpu_ofdm_torch import config as tconfig
 from tpu_ofdm.modem import rx_stream as jrs
 from tpu_ofdm.stream import executor as jex
 from tpu_ofdm_torch.modem import rx_stream as trs
 from tpu_ofdm_torch.stream import executor as tex
 
 SPEC = OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
+TSPEC = tconfig.OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
 S = 1 << 14
 SC = StreamConfig(block_size=S, max_frames_per_block=8)
+TSC = tconfig.StreamConfig(block_size=S, max_frames_per_block=8)
 H = jrs.history_len(SPEC)
 # frame starts straddling the seams at S, 2S and 4S, and one mid-block
 POSITIONS = [S - 700, 2 * S - 1, 2 * S + 6000, 4 * S - 1500]
@@ -46,7 +49,7 @@ def _jax_outs():
 
 
 def _port_frames(outs):
-    return trs.collect_frames(outs, block_size=S, hist=trs.history_len(SPEC))
+    return trs.collect_frames(outs, block_size=S, hist=trs.history_len(TSPEC))
 
 
 def _assert_same(port, ref):
@@ -62,10 +65,10 @@ def _assert_same(port, ref):
 
 def test_stream_matches_jax_across_seams():
     ref = jrs.collect_frames(_jax_outs(), block_size=S, hist=H)
-    ex = tex.StreamExecutor(trs.rx_stream_block(SPEC, SC), S)
+    ex = tex.StreamExecutor(trs.rx_stream_block(TSPEC, TSC), S, device="cpu")
     port = _port_frames(ex.run(torch.as_tensor(_stream()), drain=True))
     _assert_same(port, ref)
-    assert trs.history_len(SPEC) == H
+    assert trs.history_len(TSPEC) == H
     assert [f["frame_num"] for f in port] == list(range(len(POSITIONS)))
     assert all(f["crc_ok"] for f in port)
     for f, p in zip(port, POSITIONS):
@@ -79,7 +82,7 @@ def test_resume_from_jax_carry():
     jx = jex.StreamExecutor(jrs.rx_stream_block(SPEC, SC), S)
     for i in range(2):
         jx.push(blocks[i])
-    ex = tex.StreamExecutor(trs.rx_stream_block(SPEC, SC), S)
+    ex = tex.StreamExecutor(trs.rx_stream_block(TSPEC, TSC), S, device="cpu")
     ex.state = trs.carry_from_jax(jx.state, ex.device)
     assert int(ex.state[1]) == 2
     outs = [ex.push(torch.as_tensor(b)) for b in blocks[2:]]
@@ -94,7 +97,7 @@ def test_resume_from_jax_carry():
 
 
 def test_new_history_is_a_copy():
-    blk = trs.rx_stream_block(SPEC, SC)
+    blk = trs.rx_stream_block(TSPEC, TSC)
     state = blk.init(torch.device("cpu"))
     x = torch.as_tensor(_stream()[:S])
     (hist, step), out = blk.apply(state, x)

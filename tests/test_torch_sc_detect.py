@@ -13,13 +13,21 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 import tests.golden.golden_ofdm as G
-from tpu_ofdm.config import OfdmConfig
+from tpu_ofdm import config as jconfig
 from tpu_ofdm.kernels.sc_detect import sc_detect_rows as jax_sc_detect_rows
 from tpu_ofdm.ops import sync as jsync
+from tpu_ofdm_torch import config as tconfig
 from tpu_ofdm_torch.kernels import sc_detect as tk
 from tpu_ofdm_torch.ops import sync as tsync
 
 N = 3 * 256 * 128 + 1000   # several Pallas tiles, a ragged last row
+
+
+def _specs(fft_len, cp):
+    """The same config's spec from the port's config and the JAX
+    package's."""
+    kw = dict(fft_len=fft_len, cp_len=cp, modulation="qpsk")
+    return tconfig.OfdmConfig(**kw).spec, jconfig.OfdmConfig(**kw).spec
 
 
 def _noise(seed, n, scale):
@@ -73,9 +81,9 @@ def _assert_rows_close(got, ref, live_frac=0.99, same_frac=0.95):
 
 @pytest.mark.parametrize("fft_len,cp", [(64, 16), (256, 64)])
 def test_plain_rows_match_jnp_and_pallas(fft_len, cp):
-    spec = OfdmConfig(fft_len=fft_len, cp_len=cp, modulation="qpsk").spec
+    tspec, spec = _specs(fft_len, cp)
     x = _noise(5, N, 0.5)
-    got = _port_rows(spec, x)
+    got = _port_rows(tspec, x)
     assert got[1].dtype == np.int32
     _assert_rows_close(got, _jnp_rows(spec, x))
     # the Pallas kernel fills t < 2L+W-2 with the ramp alone, not -inf;
@@ -90,7 +98,7 @@ def test_plain_rows_match_jnp_and_pallas(fft_len, cp):
 def test_head_split_equals_concat(h):
     """[head | x] read in place gives the rows of the concatenated buffer
     -- including a head shorter than one window and seams inside a row."""
-    spec = OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
+    spec, _ = _specs(64, 16)
     v = _with_frames(spec, 8, [10, h - 900, h + 5000])
     split = _port_rows(spec, v[h:], head=v[:h])
     whole = _port_rows(spec, v)
@@ -108,13 +116,13 @@ def _select(mod, spec, rows, n_sm):
 
 @pytest.mark.parametrize("fft_len,cp", [(64, 16), (256, 64)])
 def test_selection_identical_on_golden_frames(fft_len, cp):
-    spec = OfdmConfig(fft_len=fft_len, cp_len=cp, modulation="qpsk").spec
+    tspec, spec = _specs(fft_len, cp)
     starts = [4000, 50000, 90000]
     x = _with_frames(spec, 6, starts)
     n_sm = N - spec.fft_len - spec.cp_len + 1
-    port_rows, jnp_rows = _port_rows(spec, x), _jnp_rows(spec, x)
+    port_rows, jnp_rows = _port_rows(tspec, x), _jnp_rows(spec, x)
     # the selection logic alone: port and JAX on the same rows, exactly
-    sel_pj = _select(tsync, spec, jnp_rows, n_sm)
+    sel_pj = _select(tsync, tspec, jnp_rows, n_sm)
     sel_jj = _select(jsync, spec, jnp_rows, n_sm)
     v = sel_jj[2]
     assert v.sum() == len(starts)
@@ -122,11 +130,11 @@ def test_selection_identical_on_golden_frames(fft_len, cp):
     for i in (0, 1, 3):
         np.testing.assert_array_equal(sel_pj[i][v], sel_jj[i][v])
     # the whole detection: port rows vs jnp rows, and vs detect_frames
-    sel_pp = _select(tsync, spec, port_rows, n_sm)
+    sel_pp = _select(tsync, tspec, port_rows, n_sm)
     np.testing.assert_array_equal(sel_pp[2], v)
     np.testing.assert_array_equal(sel_pp[0][v], sel_jj[0][v])
     np.testing.assert_allclose(sel_pp[1][v], sel_jj[1][v], rtol=1e-3, atol=1e-4)
-    det = tsync.detect_frames(spec, torch.as_tensor(x), 8)
+    det = tsync.detect_frames(tspec, torch.as_tensor(x), 8)
     np.testing.assert_array_equal(det.start.numpy(), sel_pp[0])
     np.testing.assert_array_equal(det.valid.numpy(), v)
     for s, want in zip(det.start.numpy()[v], starts):
@@ -134,7 +142,6 @@ def test_selection_identical_on_golden_frames(fft_len, cp):
 
 
 def test_wrapper_takes_plain_version_on_cpu():
-    spec = OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
     x = torch.as_tensor(_noise(9, 5000, 0.5))
     head = torch.as_tensor(_noise(10, 300, 0.5))
     before = tk.sc_detect_rows.launches
@@ -160,3 +167,135 @@ def test_wrapper_rejects_bad_inputs(bad):
         head = torch.zeros(100, dtype=torch.float32)
     with pytest.raises((TypeError, ValueError)):
         tk.sc_detect_rows(x, 32, 16, head=head)
+
+
+# -- a model of the CUDA kernel's summation order (csrc/sc_detect.cu) -------
+#
+# The kernel cannot run here, so its index arithmetic is modelled in torch:
+# the same strips (16 rows a warp, after a warm-up from chunk k0: one row
+# in sc_detect_l32_kernel), the same 32-position segments aligned at
+# position 0, a window as its segment's prefix plus the totals of the
+# segments it spans plus the suffix T_a - C_a(i) of the segment where it
+# starts, the values of the chunks before k0 read as zero, R1 and the picks
+# read back, and the W-boxcar of M by the same segment sums.  It must give
+# the plain version's rows at chip_smoke.py's bars (compare_rows).
+
+CHUNK = 32           # csrc/sc_detect.cu kChunk: one position a lane
+ROWS_PER_WARP = 16   # csrc/sc_detect.cu kRowsPerWarp
+
+
+def _chunks(v):
+    return -(-v // CHUNK)
+
+
+def _chunk_window(C, dist, i):
+    """The kernel's Ring::window over a ring laid out as (chunks, 32): the
+    sum of the window ending at each (chunk, lane) whose start lies
+    dist[lane] chunks back at index i[lane]."""
+    idx = torch.arange(C.shape[0])[:, None]
+    a = (idx - dist).clamp(min=0)
+    T = C[:, CHUNK - 1]
+    acc = torch.where(dist > 0, T[a] - C[a, i], -C[a, i])
+    for b in range(1, int(dist.max())):
+        acc = acc + torch.where(b < dist, T[(idx - b).clamp(min=0)], 0.0)
+    return acc + C
+
+
+def _kernel_model_rows(x, L, cp, head=None):
+    v = x if head is None else torch.cat([head, x])
+    nv = v.shape[0]
+    W, c = cp + 1, cp - cp // 2
+    D = max(_chunks(L) + 1, _chunks(W) + 1, 4 + _chunks(c))
+    lane = torch.arange(CHUNK)
+    dL = (L - lane + CHUNK - 1) // CHUNK
+    iL = lane - L + CHUNK * dL
+    dW = (W - lane + CHUNK - 1) // CHUNK
+    iW = lane - W + CHUNK * dW
+    rows = -(-nv // tk.ROW)
+    out = [[] for _ in range(6)]
+
+    def load(p):
+        ok = (p >= 0) & (p < nv)
+        return torch.where(ok, v[p.clamp(0, nv - 1)], 0)
+
+    for row0 in range(0, rows, ROWS_PER_WARP):
+        row1 = min(rows, row0 + ROWS_PER_WARP)
+        if L == CHUNK and cp == 16:        # sc_detect_l32_kernel
+            k0 = (row0 - 1) * tk.ROW // CHUNK
+        else:
+            k0 = (row0 * tk.ROW - 2 * L - W - (CHUNK - 1)) // CHUNK
+        kf, k1 = row0 * tk.ROW // CHUNK, row1 * tk.ROW // CHUNK
+        # D zero chunks stand for the ring before k0
+        k = torch.arange(k0 - D, k1)[:, None]
+        t = CHUNK * k + lane
+        live = k >= k0
+        a = torch.view_as_real(load(t))
+        b = torch.view_as_real(load(t - L))
+        terms = (b[..., 0] * a[..., 0] + b[..., 1] * a[..., 1],
+                 b[..., 0] * a[..., 1] - b[..., 1] * a[..., 0],
+                 a[..., 0] ** 2 + a[..., 1] ** 2)
+        Pre, Pim, R2 = (
+            torch.where(live, _chunk_window(
+                torch.where(live, torch.cumsum(f, -1), 0.0), dL, iL), 0.0)
+            for f in terms)
+        idx = torch.arange(k.shape[0])[:, None]
+        R1 = R2[(idx - dL).clamp(min=0), iL]
+        den = R1 * R2
+        p2 = Pre ** 2 + Pim ** 2
+        M = torch.where(den > 0, (p2 / den.clamp(min=1e-12)).clamp(max=2.0),
+                        0.0)
+        CM = torch.where(live, torch.cumsum(torch.where(live, M, 0.0), -1),
+                         0.0)
+        sm = _chunk_window(CM, dW, iW) * (1.0 / W) + tk.tiebreak(t)
+        sm = torch.where((t >= 2 * L + W - 2) & (t < nv), sm, float("-inf"))
+        r2t = torch.where((t >= 2 * L - 1) & (t < nv), R2, 0.0)
+        mine = slice(kf - (k0 - D), None)
+        smr = sm[mine].reshape(-1, tk.ROW)
+        arg = smr.argmax(-1)
+        ts = t[mine].reshape(-1, tk.ROW).gather(-1, arg[:, None])[:, 0]
+        tc = ts - c
+        ok = (tc >= 2 * L - 1) & (tc < nv)
+        ic = (tc // CHUNK - (k0 - D)).clamp(0, k.shape[0] - 1)
+
+        def pick(z):
+            return torch.where(ok, z[ic, tc % CHUNK], 0.0)
+
+        for o, r in zip(out, (smr.amax(-1), ts.to(torch.int32), pick(Pre),
+                              pick(Pim), pick(R2),
+                              r2t[mine].reshape(-1, tk.ROW).amax(-1))):
+            o.append(r)
+    return tuple(torch.cat(o) for o in out)
+
+
+@pytest.mark.parametrize("h", [0, 3072])
+@pytest.mark.parametrize("fft_len,cp", [(64, 16), (256, 64)])
+def test_kernel_summation_model_matches_plain(fft_len, cp, h):
+    """The CUDA kernel's strips and chunk edges, modelled in torch, give
+    the plain version's rows: argmax identical on >= 99% of rows, the
+    other rows at rtol 1e-4 / atol 1e-5 where it agrees (chip_smoke.py's
+    compare_rows), and identical selections."""
+    tspec, spec = _specs(fft_len, cp)
+    n = 40000
+    starts = [1000, 9000, 20000, 33000]
+    v = torch.as_tensor(_with_frames(spec, 11, starts)[: h + n])
+    head = v[:h] if h else None
+    L = fft_len // 2
+    got = _kernel_model_rows(v[h:], L, cp, head)
+    ref = tk.sc_detect_rows_plain(v[h:], L, cp, head=head)
+    same = got[1] == ref[1]
+    assert same.float().mean() >= 0.99
+    assert torch.equal(torch.isfinite(got[0]), torch.isfinite(ref[0]))
+    live = torch.isfinite(ref[0]) & same
+    for i in (0, 2, 3, 4, 5):
+        m = live if i < 5 else torch.ones_like(live)
+        torch.testing.assert_close(got[i][m], ref[i][m], rtol=1e-4,
+                                   atol=1e-5)
+    n_sm = h + n - fft_len - cp + 1
+    (st, cfo, valid, _), (st_r, cfo_r, valid_r, _) = (
+        _select(tsync, tspec, [r.numpy() for r in rows], n_sm)
+        for rows in (got, ref))
+    np.testing.assert_array_equal(valid, valid_r)
+    np.testing.assert_array_equal(st[valid], st_r[valid])
+    np.testing.assert_allclose(cfo[valid], cfo_r[valid], rtol=1e-3,
+                               atol=1e-4)
+    assert valid.sum() == len(starts)

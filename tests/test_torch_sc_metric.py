@@ -19,6 +19,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 import tests.golden.golden_ofdm as G
 from tpu_ofdm.config import OfdmConfig
+from tpu_ofdm_torch import config as tconfig
 from tpu_ofdm.kernels import scan as jscan
 from tpu_ofdm.kernels.sc_metric import sc_sliding_metric as j_sc_metric
 from tpu_ofdm.ops import sync as jsync
@@ -26,6 +27,7 @@ from tpu_ofdm_torch.kernels import sc_metric as tmetric
 from tpu_ofdm_torch.ops import sync as tsync
 
 SPEC = OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
+TSPEC = tconfig.OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
 
 
 @pytest.fixture
@@ -107,7 +109,7 @@ def _capture(n, seed=7):
 
 def test_schmidl_cox_matches_jax_xla_route():
     r = np.stack([_capture(9000, seed) for seed in (7, 8)])
-    got = tsync.schmidl_cox(SPEC, torch.as_tensor(r))
+    got = tsync.schmidl_cox(TSPEC, torch.as_tensor(r))
     want = jax.jit(lambda x: jsync.schmidl_cox(SPEC, x))(jnp.asarray(r))
     np.testing.assert_allclose(got.corr.numpy(), np.asarray(want.corr),
                                rtol=1e-3, atol=1e-3)
@@ -115,7 +117,7 @@ def test_schmidl_cox_matches_jax_xla_route():
                                rtol=1e-3, atol=1e-3)
     np.testing.assert_allclose(got.metric.numpy(), np.asarray(want.metric),
                                rtol=1e-3, atol=2e-3)
-    one = tsync.schmidl_cox(SPEC, torch.as_tensor(r[1]))
+    one = tsync.schmidl_cox(TSPEC, torch.as_tensor(r[1]))
     for a, b in zip(one, got):
         torch.testing.assert_close(a, b[1], rtol=0, atol=0)
 
@@ -124,7 +126,7 @@ def test_schmidl_cox_matches_jax_kernel_route(force_kernels):
     """n >= 2^15, where the JAX package takes its sc_metric kernel; its M
     is uncapped, so the port's M is held against min(M, 2)."""
     r = _capture(1 << 15)
-    got = tsync.schmidl_cox(SPEC, torch.as_tensor(r))
+    got = tsync.schmidl_cox(TSPEC, torch.as_tensor(r))
     want = jax.jit(lambda x: jsync.schmidl_cox(SPEC, x))(jnp.asarray(r))
     np.testing.assert_allclose(got.corr.numpy(), np.asarray(want.corr),
                                rtol=2e-3, atol=2e-3)
@@ -140,7 +142,7 @@ def test_schmidl_cox_matches_golden():
     gp = G.GoldenOfdmParams()
     tx = G.tx_frame(gp, b"payload!" * 4)
     r = np.concatenate([np.zeros(50), tx, np.zeros(50)]).astype(np.complex64)
-    m = tsync.schmidl_cox(SPEC, torch.as_tensor(r))
+    m = tsync.schmidl_cox(TSPEC, torch.as_tensor(r))
     gm, gP = G.schmidl_cox_metric(gp, r)
     n = len(gm)
     np.testing.assert_allclose(m.corr.numpy()[:n], gP.astype(np.complex64),
@@ -166,7 +168,7 @@ def test_metric_above_two_at_an_edge_is_capped(force_kernels, monkeypatch):
     d = drop - L                      # first half at 1, second half at 0.5
     raw = tmetric.sc_sliding_metric(torch.as_tensor(r), L)[2].numpy()
     assert abs(raw[d] - 4.0) < 1e-4
-    port = tsync.schmidl_cox(SPEC, torch.as_tensor(r)).metric.numpy()
+    port = tsync.schmidl_cox(TSPEC, torch.as_tensor(r)).metric.numpy()
     assert port.max() <= 2.0 and abs(port[d] - 2.0) < 1e-6
     kernel_route = np.asarray(jsync.schmidl_cox(SPEC, jnp.asarray(r)).metric)
     assert abs(kernel_route[d] - 4.0) < 1e-2

@@ -40,7 +40,7 @@ def _assert_db_close(got, want):
 
 def _push_both(jblk, tblk, x, S, steps=3):
     jx = jex.StreamExecutor(jblk, S, donate=False)
-    ex = tex.StreamExecutor(tblk, S)
+    ex = tex.StreamExecutor(tblk, S, device="cpu")
     outs = []
     for i in range(steps):
         chunk = x[i * S:(i + 1) * S]

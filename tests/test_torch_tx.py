@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 import tests.golden.golden_ofdm as G
 from tpu_ofdm.config import OfdmConfig
+from tpu_ofdm_torch import config as tconfig
 from tpu_ofdm.modem import tx as jtx
 from tpu_ofdm.ops import carrier_alloc as jca
 from tpu_ofdm.ops import constellation as jcon
@@ -79,32 +80,34 @@ def test_header_and_crc_bytes_match_jax():
 @pytest.mark.parametrize("fft_len", [64, 256])
 def test_allocate_and_sync_grids_match_jax(fft_len):
     spec = OfdmConfig(fft_len=fft_len, cp_len=fft_len // 4).spec
+    tspec = tconfig.OfdmConfig(fft_len=fft_len, cp_len=fft_len // 4).spec
     rng = np.random.RandomState(2)
     syms = (rng.randn(2, 3 * spec.n_data)
             + 1j * rng.randn(2, 3 * spec.n_data)).astype(np.complex64)
-    got = tca.allocate(spec, torch.as_tensor(syms)).numpy()
+    got = tca.allocate(tspec, torch.as_tensor(syms)).numpy()
     np.testing.assert_array_equal(got,
                                   np.asarray(jca.allocate(spec, jnp.asarray(syms))))
     np.testing.assert_array_equal(
-        tca.serialize(spec, torch.as_tensor(got)).numpy(), syms)
-    np.testing.assert_array_equal(tca.sync_grids(spec, (4,)).numpy(),
+        tca.serialize(tspec, torch.as_tensor(got)).numpy(), syms)
+    np.testing.assert_array_equal(tca.sync_grids(tspec, (4,), "cpu").numpy(),
                                   np.asarray(jca.sync_grids(spec, (4,))))
 
 
 @pytest.mark.parametrize("rolloff", [0, 4, 16])
 def test_ifft_and_cyclic_prefix_match_jax(rolloff):
     spec = OfdmConfig(rolloff_len=rolloff).spec
+    tspec = tconfig.OfdmConfig(rolloff_len=rolloff).spec
     rng = np.random.RandomState(3)
     grid = (rng.randn(2, 5, 64) + 1j * rng.randn(2, 5, 64)).astype(np.complex64)
     td = ttr.ofdm_ifft(torch.as_tensor(grid))
     np.testing.assert_allclose(td.numpy(),
                                np.asarray(jtr.ofdm_ifft(jnp.asarray(grid))),
                                atol=1e-5)
-    got = ttr.add_cyclic_prefix(spec, td)
+    got = ttr.add_cyclic_prefix(tspec, td)
     want = np.asarray(jtr.add_cyclic_prefix(spec, jnp.asarray(td.numpy())))
     assert got.shape == (2, 5 * spec.sym_len)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
-    back = ttr.remove_cyclic_prefix(spec, got, 5)
+    back = ttr.remove_cyclic_prefix(tspec, got, 5)
     if rolloff == 0:
         np.testing.assert_allclose(ttr.ofdm_fft(back).numpy(), grid,
                                    atol=1e-5)
@@ -125,8 +128,9 @@ def _payloads(spec, seed):
 @pytest.mark.parametrize("mod", ["bpsk", "qpsk", "qam16"])
 def test_tx_frames_match_jax_and_golden(mod):
     spec = OfdmConfig(modulation=mod, max_payload_bytes=64).spec
+    tspec = tconfig.OfdmConfig(modulation=mod, max_payload_bytes=64).spec
     pays, lens, nums = _payloads(spec, seed=len(mod))
-    got = ttx.tx_frames(spec, torch.as_tensor(pays), torch.as_tensor(lens),
+    got = ttx.tx_frames(tspec, torch.as_tensor(pays), torch.as_tensor(lens),
                         torch.as_tensor(nums))
     want = jax.tree.map(np.asarray, jax.jit(
         lambda p, l, f: jtx.tx_frames(spec, p, l, f))(pays, lens, nums))
@@ -144,7 +148,7 @@ def test_tx_frames_match_jax_and_golden(mod):
                                    atol=1e-5 * scale)
         assert not got.samples[i, n:].abs().any()
     # the same payloads come back from either TX's samples
-    dec = [trx.demod_frame(spec, torch.tensor(s))
+    dec = [trx.demod_frame(tspec, torch.tensor(s))
            for s in (got.samples.numpy(), want.samples)]
     for d in dec:
         assert d.crc_ok.all() and d.hdr_ok.all()
@@ -159,14 +163,15 @@ def test_tx_frames_match_jax_and_golden(mod):
 
 def test_tx_frame_and_pack_stream_match_jax():
     spec = OfdmConfig(modulation="qpsk", max_payload_bytes=64).spec
+    tspec = tconfig.OfdmConfig(modulation="qpsk", max_payload_bytes=64).spec
     pays, lens, nums = _payloads(spec, seed=5)
-    one = ttx.tx_frame(spec, torch.as_tensor(pays[2]), int(lens[2]), 9)
+    one = ttx.tx_frame(tspec, torch.as_tensor(pays[2]), int(lens[2]), 9)
     jone = jtx.tx_frame(spec, jnp.asarray(pays[2]), int(lens[2]), 9)
     assert int(one.n_samples) == int(jone.n_samples)
     assert int(one.wire_len) == int(jone.wire_len)
     np.testing.assert_allclose(one.samples.numpy(), np.asarray(jone.samples),
                                atol=1e-5)
-    frames = ttx.tx_frames(spec, torch.as_tensor(pays), torch.as_tensor(lens),
+    frames = ttx.tx_frames(tspec, torch.as_tensor(pays), torch.as_tensor(lens),
                            torch.as_tensor(nums))
     jframes = jtx.TxFrame(*(jnp.asarray(f.numpy()) for f in frames))
     for gap in (0, 37):

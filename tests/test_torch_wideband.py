@@ -2,8 +2,8 @@
 channels) against the JAX package's (channelizer -> rx_block vmapped over
 the channels) on tests/test_wideband.py's capture, through both
 executors.  Channels, payloads, frame numbers, crc_ok and abs_start must be
-identical, EVM within rtol 1e-3.  Also: the port resumes mid-stream from a
-JAX carry; the batched detect, gather and rx_block equal their per-row
+identical, EVM within rtol 1e-3, with either equalizer.  Also: the port
+resumes mid-stream from a JAX carry; the batched detect, gather and rx_block equal their per-row
 forms exactly; the gather equals the JAX wideband path's vmapped
 dynamic_slice exactly."""
 
@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import tests.golden.golden_ofdm as G
 from tests.test_wideband import _synthesize_wideband
 from tpu_ofdm.config import OfdmConfig, StreamConfig
+from tpu_ofdm_torch import config as tconfig
 from tpu_ofdm.modem import wideband as jwb
 from tpu_ofdm.stream import executor as jex
 from tpu_ofdm_torch.kernels import gather as tg
@@ -29,9 +30,11 @@ from tpu_ofdm_torch.stream import executor as tex
 
 CFG = OfdmConfig(modulation="qpsk", max_payload_bytes=64)
 SPEC = CFG.spec
+TSPEC = tconfig.OfdmConfig(modulation="qpsk", max_payload_bytes=64).spec
 N_CHAN = 8
 S = 1024
 SC = StreamConfig(block_size=N_CHAN * S, max_frames_per_block=4)
+TSC = tconfig.StreamConfig(block_size=N_CHAN * S, max_frames_per_block=4)
 TARGETS = {1: (b"channel one message", 500),
            5: (b"channel five message", 1200),
            6: (b"a late frame on six", 4100)}
@@ -59,10 +62,10 @@ def _assert_same(port, ref):
 
 
 def test_wideband_rx_matches_jax():
-    ex = tex.StreamExecutor(twb.wideband_rx_block(SPEC, N_CHAN, SC),
-                            SC.block_size)
+    ex = tex.StreamExecutor(twb.wideband_rx_block(TSPEC, N_CHAN, TSC),
+                            SC.block_size, device="cpu")
     outs = ex.run(torch.as_tensor(_capture()), drain=True)
-    port = twb.collect_wideband_frames(outs, S, SPEC)
+    port = twb.collect_wideband_frames(outs, S, TSPEC)
     _assert_same(port, _jax_frames())
     assert {(f["channel"], f["payload"]) for f in port} == {
         (k, msg) for k, (msg, _) in TARGETS.items()}
@@ -72,6 +75,23 @@ def test_wideband_rx_matches_jax():
     assert outs[0].result.valid.shape == (N_CHAN, SC.max_frames_per_block)
 
 
+def test_wideband_simpledfe_matches_jax():
+    """equalizer="simpledfe" goes through to every channel's rx_block, in
+    the port as in the JAX package: the same frames."""
+    jx = jex.StreamExecutor(
+        jwb.wideband_rx_block(SPEC, N_CHAN, SC, equalizer="simpledfe"),
+        SC.block_size)
+    ref = jwb.collect_wideband_frames(jx.run(_capture(), drain=True), S,
+                                      SPEC)
+    ex = tex.StreamExecutor(
+        twb.wideband_rx_block(TSPEC, N_CHAN, TSC, equalizer="simpledfe"),
+        TSC.block_size, device="cpu")
+    port = twb.collect_wideband_frames(
+        ex.run(torch.as_tensor(_capture()), drain=True), S, TSPEC)
+    _assert_same(port, ref)
+    assert len(port) == len(TARGETS) and all(f["crc_ok"] for f in port)
+
+
 def test_resume_from_jax_carry():
     """Three JAX steps, then the port continues from the JAX carry."""
     blocks, _ = jex.pad_to_blocks(_capture(), SC.block_size)
@@ -79,17 +99,17 @@ def test_resume_from_jax_carry():
                             SC.block_size)
     for i in range(3):
         jx.push(blocks[i])
-    ex = tex.StreamExecutor(twb.wideband_rx_block(SPEC, N_CHAN, SC),
-                            SC.block_size)
+    ex = tex.StreamExecutor(twb.wideband_rx_block(TSPEC, N_CHAN, TSC),
+                            SC.block_size, device="cpu")
     ex.state = twb.carry_from_jax(jx.state, ex.device)
     outs = [ex.push(torch.as_tensor(b)) for b in blocks[3:]]
     zeros = torch.zeros(SC.block_size, dtype=torch.complex64)
     outs += [ex.push(zeros) for _ in range(-(-ex.block.latency
                                               // SC.block_size))]
-    H = twb.history_len(SPEC)
+    H = twb.history_len(TSPEC)
     ref = [f for f in _jax_frames() if f["abs_start"] >= 3 * S - H]
     assert [f["channel"] for f in ref] == [6]
-    _assert_same(twb.collect_wideband_frames(outs, S, SPEC), ref)
+    _assert_same(twb.collect_wideband_frames(outs, S, TSPEC), ref)
     tail, hist, step = twb.carry_to_jax(ex.state)
     j_tail, j_hist, j_step = jwb.wideband_rx_block(SPEC, N_CHAN, SC).init()
     assert tail.shape == j_tail.shape and tail.dtype == np.complex64
@@ -113,10 +133,10 @@ def _rows(seed, B=4, h=1024, n=9000):
 
 def test_batched_rx_block_equals_per_row():
     head, x = _rows(1)
-    got = trx.rx_block(SPEC, x, 4, own_lo=0, own_hi=x.shape[-1], head=head)
+    got = trx.rx_block(TSPEC, x, 4, own_lo=0, own_hi=x.shape[-1], head=head)
     assert int(got.valid.sum()) == 8
     for b in range(x.shape[0]):
-        one = trx.rx_block(SPEC, x[b], 4, own_lo=0, own_hi=x.shape[-1],
+        one = trx.rx_block(TSPEC, x[b], 4, own_lo=0, own_hi=x.shape[-1],
                            head=head[b])
         for a, w in zip(jax.tree.leaves(tuple(got)),
                         jax.tree.leaves(tuple(one))):
@@ -159,12 +179,12 @@ def test_other_equalizers_raise():
     (tests/test_torch_radio.py holds them against the JAX package)."""
     head, x = _rows(4)
     with pytest.raises(ValueError):
-        trx.rx_block(SPEC, x, 4, head=head, equalizer="")
+        trx.rx_block(TSPEC, x, 4, head=head, equalizer="")
     with pytest.raises(ValueError):
-        trx.rx_block(SPEC, x, 4, head=head, equalizer="zf")
+        trx.rx_block(TSPEC, x, 4, head=head, equalizer="zf")
     with pytest.raises(ValueError):
-        trx.rx_block(SPEC, x, 4, head=head, output="bits")
-    res = trx.rx_block(SPEC, x, 4, head=head, equalizer="simpledfe",
+        trx.rx_block(TSPEC, x, 4, head=head, output="bits")
+    res = trx.rx_block(TSPEC, x, 4, head=head, equalizer="simpledfe",
                        output="soft")
     assert res.frames.llr.shape[:2] == res.valid.shape
 

@@ -1,5 +1,5 @@
-// Shared-memory DFT of many short frames at once, for the channelizer
-// (pfb.cu) and the PSD (psd.cu) kernels.
+// Shared-memory DFT of many short frames at once, for the PSD kernel
+// (psd.cu).
 //
 // The TPU kernels computed these DFTs inside their bodies as MXU matmuls
 // against constant DFT matrices (tpu_ofdm/kernels/pfb.py, psd.py); here it

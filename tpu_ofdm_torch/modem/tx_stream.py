@@ -55,13 +55,13 @@ def _to_device(ti: TxStreamIn, device) -> TxStreamIn:
     return TxStreamIn(*(torch.as_tensor(a, device=device) for a in ti))
 
 
-def empty_tx_in(spec: OfdmSpec, k: int, device="cpu") -> TxStreamIn:
+def empty_tx_in(spec: OfdmSpec, k: int, device="cuda") -> TxStreamIn:
     """An all-invalid input batch on `device`."""
     return _to_device(_host_tx_in(spec, k), device)
 
 
 def queue_tx_in(spec: OfdmSpec, k: int, pdus, frame_num0: int = 0,
-                device="cpu"):
+                device="cuda"):
     """Pack up to k (bytes-like) PDUs into a TxStreamIn on `device`, slot
     i numbered frame_num0 + i; returns (tx_in, leftover PDUs)."""
     ti = _host_tx_in(spec, k)

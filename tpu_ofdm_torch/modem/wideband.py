@@ -42,11 +42,13 @@ def wideband_rx_block(
     n_chan: int,
     stream_cfg: StreamConfig,
     taps: np.ndarray | None = None,
+    equalizer: str = "pilot_phase",
 ) -> Block:
     """Channelizer + N parallel streaming OFDM RX chains as one Block.
 
     stream_cfg.block_size counts WIDEBAND samples and must be a multiple of
-    n_chan; per-channel blocks are block_size // n_chan samples."""
+    n_chan; per-channel blocks are block_size // n_chan samples.
+    `equalizer` goes to rx_block ("pilot_phase" or "simpledfe")."""
     taps_np = lowpass_taps(n_chan) if taps is None else np.asarray(taps)
     poly = device_poly(taps_np, n_chan)
     C = stream_tail_len(n_chan, taps_np)
@@ -69,7 +71,8 @@ def wideband_rx_block(
         chans, new_tail = channelize_stream(x, ch_tail, n_chan,
                                             poly(x.device))
         chans = chans.t().contiguous()                      # (n_chan, S)
-        res = rx_block(spec, chans, K, own_lo=0, own_hi=S, head=rx_hist)
+        res = rx_block(spec, chans, K, own_lo=0, own_hi=S, head=rx_hist,
+                       equalizer=equalizer)
         if S >= H:
             new_hist = chans[:, S - H:].clone()
         else:

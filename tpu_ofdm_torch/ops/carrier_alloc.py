@@ -55,7 +55,7 @@ def serialize(spec: OfdmSpec, grids: torch.Tensor) -> torch.Tensor:
     return d.reshape(*grids.shape[:-2], grids.shape[-2] * spec.n_data)
 
 
-def sync_grids(spec: OfdmSpec, batch_shape=(), device="cpu") -> torch.Tensor:
+def sync_grids(spec: OfdmSpec, batch_shape, device) -> torch.Tensor:
     """The two sync-word grids (..., 2, fft_len), broadcast to
     batch_shape (a view: clone before writing into it)."""
     sw = _sync_words(spec, torch.device(device))

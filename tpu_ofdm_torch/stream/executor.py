@@ -35,11 +35,12 @@ class StreamExecutor:
     """Open-ended streaming driver around a Block.
 
     Keeps the carry across run() calls and exposes throughput counters.
-    `device` is where the carry lives; every pushed block must be there.
-    On a GPU, `samples_per_sec` counts the host's enqueue time, as the JAX
-    executor's did: end a timing with a readback of a result."""
+    `device` is where the carry lives (the card unless the caller asks
+    for the CPU); every pushed block must be there.  On a GPU,
+    `samples_per_sec` counts the host's enqueue time, as the JAX executor's
+    did: end a timing with a readback of a result."""
 
-    def __init__(self, block: Block, block_size: int, device="cpu"):
+    def __init__(self, block: Block, block_size: int, device="cuda"):
         self.block = block
         self.block_size = block_size
         self.device = torch.empty(0, device=device).device  # resolve index
