@@ -9,11 +9,17 @@ in order -- any failure raises and the script exits non-zero:
   2. build    compile the port's CUDA kernels from tpu_ofdm_torch/csrc
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the paths' shapes and on golden frames; kernel and plain
-              times; rx_block on the card against rx_block on the CPU.
-              sc_detect and gather also batched over 64 channels; pfb at
-              8..512 channels with a two-step tail carry; psd at 128, 384
-              and 1024 bins with two windows, bin by bin; pfb and psd also
-              at the shapes the paths give them
+              times (warm, with the launches queued ahead so that the
+              events time the card); rx_block on the card against rx_block
+              on the CPU.  sc_detect and gather also batched over 64
+              channels; gather bit for bit at odd and even F on windows of
+              every class and both parities, and timed cold (L2 flushed
+              before each launch) and per call from the host beside
+              x.unfold(-1, F, 1)[starts]; pfb at 8..512 channels with a
+              two-step tail carry; psd at 128, 384 and 1024 bins with two
+              windows, bin by bin; pfb and psd also at the shapes the paths
+              give them; scan also at ragged lengths and along a leading
+              axis, beside float32 and float64 torch.cumsum
   4. main     streaming RX through StreamExecutor at block 2^25, K = 480,
               fft 64, cp 16, QPSK: 448 golden frames per block, 24 timed
               pushes x 3 trials; every frame must come back with the
@@ -142,8 +148,10 @@ WRAPPERS = {"sc_detect": kdetect.sc_detect_rows,
             "scan": kscan.cumsum, "sc_metric": kmetric.sc_sliding_metric}
 
 # phase 3: the scan and sc_metric kernels' shapes ((L, shape) for sc_metric;
-# a row of BLOCK samples is the headline block with its frames)
-SCAN_SHAPES = [(1, BLOCK), (3, BLOCK), (4096, 6144)]
+# a row of BLOCK samples is the headline block with its frames); scan also
+# at ragged lengths, whose tiles and rows are not 16-byte aligned
+SCAN_SHAPES = [(1, BLOCK), (3, BLOCK), (4096, 6144), (1, BLOCK - 3),
+               (1, 6145), (64, 4096 * 3 + 1)]
 METRIC_CASES = [(32, (1, BLOCK)), (32, (4096, 6144)), (128, (2, 1 << 20)),
                 (192, (2, 1 << 20))]
 
@@ -222,17 +230,52 @@ def log_bound(what: str, ms: float, b: dict) -> None:
         f"{b['bound_ms'] / ms:.3f} of it")
 
 
-def cuda_ms(fn, reps: int) -> float:
+# a spin of ~10 ms on the card (at up to 1.98 GHz) before a timed run
+QUEUE_CYCLES = 20_000_000
+
+
+def cuda_ms(fn, reps: int, queued: bool = True) -> float:
+    """Warm: mean ms of `reps` launches in a row, timed by one pair of CUDA
+    events; a small input stays in the 50 MB L2 from one launch to the
+    next.  `queued`: a spin kernel first holds the stream for QUEUE_CYCLES,
+    so the host has queued every launch before the card reaches them, and
+    the events time the card alone.  Without it a call shorter on the card
+    than on the host is timed at the host's call rate instead."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     t0.record()
     for _ in range(reps):
         fn()
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+FLUSH_BYTES = 128 << 20  # written before each cold launch: 2.5 x the L2
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Cold: mean ms of `reps` launches, each right after a write of
+    FLUSH_BYTES to a scratch buffer and timed by its own pair of CUDA
+    events, so that it finds its inputs in device memory, as a path does
+    after a pass over its block."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=torch.cuda.current_device())
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(QUEUE_CYCLES)
+    for t0, t1 in events:
+        flush.fill_(1.0)
+        t0.record()
+        fn()
+        t1.record()
+    torch.cuda.synchronize()
+    return sum(t0.elapsed_time(t1) for t0, t1 in events) / reps
 
 
 # -- 1. device ---------------------------------------------------------------
@@ -360,23 +403,23 @@ def phase_kernels(dev, tag: str) -> list[dict]:
 
     # gather: K = 480 windows of F = 2000 across the head/x seam
     F = spec.max_frame_len
-    nv = H + BLOCK
-    seam = [0, 1, H - F - 1, H - F, H - 1000, H - 1, H, H + 1, nv - F - 1,
-            nv - F]
-    rng = np.random.RandomState(3)
-    rand = rng.randint(0, nv - F + 1, SLOTS - len(seam))
-    starts = torch.as_tensor(np.sort(np.concatenate([seam, rand])),
-                             dtype=torch.int32, device=dev)
+    starts = headline_starts(H, F, dev)
     got = kgather.gather_windows(x, starts, F, head=head)
     ref = kgather.gather_windows_plain(x, starts, F, head=head)
     if not torch.equal(got, ref):
         raise AssertionError("gather: kernel differs from plain version")
     log(f"  gather K {SLOTS} F {F} across the seam: exact")
+    err_g = max((got - ref).abs().max().item(), check_gather_cases(dev))
     ms_g = cuda_ms(lambda: kgather.gather_windows(x, starts, F, head=head),
                    50)
+    call_g = cuda_ms(lambda: kgather.gather_windows(x, starts, F, head=head),
+                     50, queued=False)
+    cold_g = cold_ms(lambda: kgather.gather_windows(x, starts, F, head=head),
+                     GATHER_COLD_REPS)
     ms_g_plain = cuda_ms(
         lambda: kgather.gather_windows_plain(x, starts, F, head=head), 10)
-    log(f"  gather K {SLOTS} F {F}: kernel {ms_g:.4f} ms, plain "
+    log(f"  gather K {SLOTS} F {F}: kernel {ms_g:.4f} ms warm, "
+        f"{cold_g:.4f} ms cold, {call_g:.4f} ms a call from the host; plain "
         f"{ms_g_plain:.4f} ms  [{tag}]")
     b_g = bound(8 * window_union(starts.cpu().numpy(), F) + 4 * SLOTS
                 + 8 * SLOTS * F, 0)
@@ -409,10 +452,9 @@ def phase_kernels(dev, tag: str) -> list[dict]:
         "sc_detect": {"max_abs_err": max(err_det, err_b_det), "ms": ms_det,
                       "plain_ms": ms_det_plain, **b_det,
                       "library_ms": None},
-        "gather": {"max_abs_err": max((got - ref).abs().max().item(),
-                                      err_b_g),
+        "gather": {"max_abs_err": max(err_g, err_b_g),
                    "ms": ms_g, "plain_ms": ms_g_plain, **b_g,
-                   "library_ms": lib_g},
+                   "cold_ms": cold_g, "call_ms": call_g, **lib_g},
         "pfb": check_pfb(dev, tag),
         "psd": check_psd(dev, tag),
         "scan": check_scan(dev, tag),
@@ -421,10 +463,27 @@ def phase_kernels(dev, tag: str) -> list[dict]:
     return kernels
 
 
-def gather_library(x, F: int, dev, tag: str) -> float:
+GATHER_COLD_REPS = 24
+
+
+def headline_starts(H: int, F: int, dev) -> torch.Tensor:
+    """gather's starts at the headline shape: K = SLOTS windows of F over
+    [H | BLOCK], ten of them at and across the head/x seam and the ends,
+    the rest at random."""
+    nv = H + BLOCK
+    seam = [0, 1, H - F - 1, H - F, H - 1000, H - 1, H, H + 1, nv - F - 1,
+            nv - F]
+    rng = np.random.RandomState(3)
+    rand = rng.randint(0, nv - F + 1, SLOTS - len(seam))
+    return torch.as_tensor(np.sort(np.concatenate([seam, rand])),
+                           dtype=torch.int32, device=dev)
+
+
+def gather_library(x, F: int, dev, tag: str) -> dict:
     """The one-call yardstick of gather: x.unfold(-1, F, 1)[starts] on the
     2^25 block alone (no head), K = SLOTS windows.  It must equal the
-    kernel; returns its time."""
+    kernel; returns its warm, cold and per-call times (the kernel's on the
+    same windows are printed beside them)."""
     rng = np.random.RandomState(5)
     starts = torch.as_tensor(np.sort(rng.randint(0, BLOCK - F + 1, SLOTS)),
                              dtype=torch.int32, device=dev)
@@ -436,9 +495,51 @@ def gather_library(x, F: int, dev, tag: str) -> float:
                              "[starts]")
     ms = cuda_ms(lambda: kgather.gather_windows(x, starts, F), 50)
     ms_lib = cuda_ms(lambda: x.unfold(-1, F, 1)[idx], 50)
-    log(f"  gather K {SLOTS} F {F} without head: kernel {ms:.4f} ms, "
-        f"x.unfold(-1, F, 1)[starts] {ms_lib:.4f} ms, equal  [{tag}]")
-    return ms_lib
+    cold = cold_ms(lambda: kgather.gather_windows(x, starts, F),
+                   GATHER_COLD_REPS)
+    cold_lib = cold_ms(lambda: x.unfold(-1, F, 1)[idx], GATHER_COLD_REPS)
+    call = cuda_ms(lambda: kgather.gather_windows(x, starts, F), 50,
+                   queued=False)
+    call_lib = cuda_ms(lambda: x.unfold(-1, F, 1)[idx], 50, queued=False)
+    log(f"  gather K {SLOTS} F {F} without head: kernel {ms:.4f} ms warm, "
+        f"{cold:.4f} ms cold, {call:.4f} ms a call; x.unfold(-1, F, 1)"
+        f"[starts] {ms_lib:.4f} ms warm, {cold_lib:.4f} ms cold, "
+        f"{call_lib:.4f} ms a call; equal  [{tag}]")
+    return {"library_ms": ms_lib, "library_cold_ms": cold_lib,
+            "library_call_ms": call_lib}
+
+
+def check_gather_cases(dev) -> float:
+    """gather against its plain version, bit for bit, on 3 buffers of
+    [3072 | 2^16 + 3] samples (an odd row length, so rows and windows start
+    at both parities) at F 2000, 1999, 720 and 1: windows wholly in the
+    head, ending exactly at the seam, straddling it, starting at x[0], in x
+    at both parities, before 0, and running past the end; batched with and
+    without the head, and one row alone.  Returns the max abs error."""
+    H, n, B = 3072, (1 << 16) + 3, 3
+    v = noisy_buffers(B, H + n, seed=13, dev=dev)
+    head, x = v[:, :H].contiguous(), v[:, H:].contiguous()
+    nv = H + n
+    err = 0.0
+    for F in (2000, 1999, 720, 1):
+        starts = [0, 1, 7, H - F - 1, H - F, H - F + 1, H - F // 2, H - 1, H,
+                  H + 1, H + 2, nv // 2, nv // 2 + 1, nv - F - 1, nv - F,
+                  nv - F + 1, nv - 1, nv, nv + 5, -1, -F, -F - 3, -(F // 2)]
+        st = torch.tensor(starts, dtype=torch.int32, device=dev)
+        st = torch.stack([st.roll(b) for b in range(B)])   # (B, K)
+        cases = [(x, st, head, "batched"), (x, st, None, "batched, no head"),
+                 (x[1].contiguous(), st[1].contiguous(),
+                  head[1].contiguous(), "row 1")]
+        for xs, ss, hs, what in cases:
+            got = kgather.gather_windows(xs, ss, F, head=hs)
+            want = kgather.gather_windows_plain(xs, ss, F, head=hs)
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather F {F} {what}: kernel differs "
+                                     "from the plain version")
+            err = max(err, (got - want).abs().max().item())
+    log(f"  gather at F 2000, 1999, 720, 1 over {B} x [{H} | 2^16 + 3], "
+        "every window class, both parities: exact")
+    return err
 
 
 def check_batched(dev, tag: str) -> tuple[float, float]:
@@ -611,59 +712,82 @@ def check_psd(dev, tag: str) -> dict:
             "plain_ms": times[1024][1], **b, "library_ms": None}
 
 
+def scan_ratio(got, x, axis: int = -1) -> tuple[float, float]:
+    """(max abs error, worst ratio to scan's bar) of a float32 prefix `got`
+    of x along `axis` against the plain version.  Both sides round a
+    float64 sum to float32 once, so the bar is one float32 ulp plus the
+    float64 sums' own difference: 2^-23 |want| + 1e-10 * sum_{i<=t} |x_i|
+    at every t."""
+    want = kscan.cumsum_plain(x, axis).double()
+    bar = (2.0 ** -23 * want.abs()
+           + 1e-10 * torch.cumsum(x.abs().double(), dim=axis))
+    d = (got.double() - want).abs()
+    return d.max().item(), (d / bar).max().item()
+
+
 def check_scan(dev, tag: str) -> dict:
     """cumsum against its float64 plain version at (1, 2^25), (3, 2^25)
-    (the moving_sums shape) and (4096, 6144), on Gaussian samples of mean
-    0.25, so the prefix drifts.  Both sides round a float64 sum to float32
-    once, so the bar is one float32 ulp plus the float64 sums' own
-    difference: |got - want| <= 2^-23 |want| + 1e-10 * sum_{i<=t} |x_i|
-    at every t (the worst ratio is printed).  Then
-    kernel and plain times; the kernels line takes (1, 2^25), since torch's
-    float64 cumsum slows far more than 3x on three such rows."""
+    (the moving_sums shape), (4096, 6144) and the ragged SCAN_SHAPES, on
+    Gaussian samples of mean 0.25, so the prefix drifts, at scan_ratio's
+    bar (the worst ratio is printed); along a leading axis too, where the
+    kernel must launch once per call.  Then kernel and plain times; the
+    kernels line takes (1, 2^25), since torch's float64 cumsum slows far
+    more than 3x on three such rows.  Whether two runs at (1, 2^25) gave
+    the same bits is printed: the look-back may add the float64 terms in
+    another order (csrc/scan.cu), so it is no gate."""
     err = 0.0
     times = {}
     for i, shape in enumerate(SCAN_SHAPES):
         gen = torch.Generator(device=dev).manual_seed(80 + i)
         x = torch.randn(shape, generator=gen, device=dev) + 0.25
         got = kscan.cumsum(x)
-        want = kscan.cumsum_plain(x)
-        bar = (2.0 ** -23 * want.double().abs()
-               + 1e-10 * torch.cumsum(x.abs().double(), dim=-1))
-        d = (got.double() - want.double()).abs()
-        ratio = (d / bar).max().item()
+        e, ratio = scan_ratio(got, x)
         if not ratio <= 1.0:
             raise AssertionError(f"scan {shape}: worst t at {ratio:.3g} of "
                                  "its bar 2^-23 |want| + 1e-10 sum |x_i|")
-        e = d.max().item()
         err = max(err, e)
+        if i == 0:
+            same = torch.equal(got, kscan.cumsum(x))
+            log(f"  scan {shape}: two runs bit-identical: {same}")
         times[shape] = (cuda_ms(lambda: kscan.cumsum(x), 20),
                         cuda_ms(lambda: kscan.cumsum_plain(x), 5))
         log(f"  scan {shape}: max abs err {e:.3g}, worst t at {ratio:.3g} of "
             f"its bar; kernel {times[shape][0]:.4f} ms, plain "
             f"{times[shape][1]:.4f} ms  [{tag}]")
+    gen = torch.Generator(device=dev).manual_seed(89)
+    for shape, axis in (((4096, 640), 0), ((8, 3001, 5), 1)):
+        x = torch.randn(shape, generator=gen, device=dev) + 0.25
+        before = kscan.cumsum.launches
+        got = kscan.cumsum(x, axis=axis)
+        e, ratio = scan_ratio(got, x, axis)
+        if kscan.cumsum.launches != before + 1 or not ratio <= 1.0:
+            raise AssertionError(f"scan {shape} axis {axis}: "
+                                 f"{kscan.cumsum.launches - before} launches,"
+                                 f" worst t at {ratio:.3g} of its bar")
+        err = max(err, e)
+        log(f"  scan {shape} along axis {axis}: one launch, max abs err "
+            f"{e:.3g}, worst t at {ratio:.3g} of its bar")
     ms, plain_ms = times[SCAN_SHAPES[0]]
     n = math.prod(SCAN_SHAPES[0])
     b = bound(8 * n, n)
     log_bound(f"scan {SCAN_SHAPES[0]}", ms, b)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": scan_library(dev, tag)}
+            **scan_library(dev, tag)}
 
 
-def scan_library(dev, tag: str) -> float:
-    """The one-call yardstick of scan: torch.cumsum in float32 at
-    SCAN_SHAPES[0], held to scan's bar (the worst ratio is printed; it is
-    no gate, as float32 cumsum is not meant to meet it); returns its
-    time."""
+def scan_library(dev, tag: str) -> dict:
+    """The one-call yardsticks of scan at SCAN_SHAPES[0]: torch.cumsum in
+    float32 (`library_ms`), held to scan's bar (the worst ratio is printed;
+    it is no gate, as float32 cumsum is not meant to meet it), and in
+    float64 (`library_f64_ms`), the one call that meets the bar."""
     gen = torch.Generator(device=dev).manual_seed(80)
     x = torch.randn(SCAN_SHAPES[0], generator=gen, device=dev) + 0.25
-    want = kscan.cumsum_plain(x).double()
-    bar = (2.0 ** -23 * want.abs()
-           + 1e-10 * torch.cumsum(x.abs().double(), dim=-1))
-    ratio = ((torch.cumsum(x, -1).double() - want).abs() / bar).max().item()
+    _, ratio = scan_ratio(torch.cumsum(x, -1), x)
     ms = cuda_ms(lambda: torch.cumsum(x, -1), 20)
+    ms64 = cuda_ms(lambda: torch.cumsum(x, -1, dtype=torch.float64), 5)
     log(f"  scan {SCAN_SHAPES[0]}: torch.cumsum float32 {ms:.4f} ms, worst "
-        f"t at {ratio:.3g} of scan's bar  [{tag}]")
-    return ms
+        f"t at {ratio:.3g} of scan's bar; float64 {ms64:.4f} ms  [{tag}]")
+    return {"library_ms": ms, "library_f64_ms": ms64}
 
 
 def pair_energy(r, L: int) -> torch.Tensor:

@@ -16,6 +16,8 @@ on the CFO-statistics captures -- and measures, per push:
   ops          device operations per push in that trace
   idle share   1 - busy / wall, for the fastest and slowest window
   top          device ms per push by operation name, largest first
+  port         device ms per push of each of the port's own CUDA kernels
+               (csrc/*.cu) that ran, by function name
 
 Prints one line per cell and writes all of it as JSON to --out.
 """
@@ -26,6 +28,7 @@ import argparse
 import collections
 import json
 import pathlib
+import re
 import time
 
 import torch
@@ -39,6 +42,10 @@ from tpu_ofdm_torch.ops.sync import schmidl_cox
 from tpu_ofdm_torch.stream.executor import StreamExecutor
 
 STEPS = 5                # profiled pushes per cell
+# the port's kernels (csrc/*.cu), as the trace names them
+PORT_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)")
+PORT_KERNELS = {"sc_detect_l32_kernel", "sc_detect_kernel", "gather_kernel",
+                "pfb_kernel", "psd_kernel", "scan_kernel", "sc_metric_kernel"}
 
 
 class Loopback:
@@ -109,8 +116,8 @@ def host_windows(ex, x, n=10, windows=3):
 
 
 def device_profile(ex, x):
-    """(busy ms/push, ops/push, {op name: ms/push}) from a torch.profiler
-    trace of STEPS pushes."""
+    """(busy ms/push, ops/push, {op name: ms/push} of the largest, {port
+    kernel: ms/push}) from a torch.profiler trace of STEPS pushes."""
     for _ in range(3):
         ex.push(x)
     torch.cuda.synchronize()
@@ -130,7 +137,12 @@ def device_profile(ex, x):
     for e in evs:
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
     top = {k: v / STEPS for k, v in by_name.most_common(8)}
-    return busy / 1e3 / STEPS, len(evs) / STEPS, top
+    port = collections.Counter()
+    for name, ms in by_name.items():
+        m = PORT_KERNEL.match(name)
+        if m and m.group(1) in PORT_KERNELS:
+            port[m.group(1)] += ms / STEPS
+    return busy / 1e3 / STEPS, len(evs) / STEPS, top, dict(port)
 
 
 def main():
@@ -144,20 +156,21 @@ def main():
     for name, ex, x in cells(dev):
         ex.push(x)                                  # warm-up
         host = host_windows(ex, x)
-        busy, ops, top = device_profile(ex, x)
+        busy, ops, top, port = device_profile(ex, x)
         walls = [w for w, _ in host]
         row = {
             "wall_ms": [min(walls), max(walls)],
             "enqueue_ms": [min(e for _, e in host), max(e for _, e in host)],
             "busy_ms": busy, "ops": ops,
             "idle_share": [1 - busy / min(walls), 1 - busy / max(walls)],
-            "top_ms": top,
+            "top_ms": top, "port_ms": port,
         }
         rows[name] = row
         print(f"{name}: wall {row['wall_ms']} ms, enqueue "
               f"{row['enqueue_ms']} ms, busy {busy:.4f} ms, {ops:g} ops, "
               f"idle {row['idle_share']}; top "
-              + ", ".join(f"{k[:48]} {v:.4f}" for k, v in top.items()),
+              + ", ".join(f"{k[:48]} {v:.4f}" for k, v in top.items())
+              + "; port " + ", ".join(f"{k} {v:.4f}" for k, v in port.items()),
               flush=True)
         del ex, x
         torch.cuda.empty_cache()

@@ -102,6 +102,14 @@ def test_chip_smoke_imports_no_jax():
     assert not re.search(r"^\s*(import|from)\s+(jax|tpu_ofdm)\b", src, re.M)
 
 
+@pytest.mark.parametrize("script", ["profile_paths.py", "kernel_ab.py"])
+def test_card_scripts_import_no_jax(script):
+    """The other scripts that run on the card's machine, which has no
+    JAX."""
+    src = (ROOT / script).read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|tpu_ofdm)\b", src, re.M)
+
+
 def test_no_undated_perf_figures_in_port():
     offenders = []
     files = sorted(PKG.rglob("*.py")) + sorted((PKG / "csrc").glob("*.cu*"))

@@ -50,11 +50,103 @@ def test_cumsum_matches_jax(jax_route, shape):
     assert got.dtype == np.float32 and got.shape == shape
 
 
-def test_cumsum_non_last_axis_takes_the_plain_version():
+def test_cumsum_along_a_leading_axis_matches_jax():
+    """Any axis: on the card the kernel runs along it (moved last and
+    back), on the CPU the plain version does."""
     x = np.random.RandomState(1).randn(64, 32).astype(np.float32)
     got = tscan.cumsum(torch.as_tensor(x), axis=0).numpy()
     want = np.asarray(jscan.cumsum(jnp.asarray(x), axis=0))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    assert got.shape == x.shape
+    with pytest.raises(IndexError):
+        tscan.cumsum(torch.as_tensor(x), axis=2)
+
+
+# A torch model of csrc/scan.cu's single pass: each tile's float64 sums
+# (PER_THREAD consecutive samples a thread, then a scan of the thread
+# totals), its published aggregate, and its look-back over its row's
+# predecessors in passes of 32 * LOOK, by distance, taking each as an
+# aggregate or, once that tile is done, as its inclusive prefix, and
+# stopping at the nearest inclusive one.  On the card tiles finish in an
+# order set by timing; the model takes it from a schedule.
+
+PER_THREAD, LOOK = 32, 4   # csrc/scan.cu kPerThread, kLook
+
+
+def _lookback_model(x, order):
+    B, n = x.shape
+    tiles = -(-n // tscan.TILE)
+    xs = torch.as_tensor(x, dtype=torch.float64)
+    pad = torch.zeros(B, tiles * tscan.TILE, dtype=torch.float64)
+    pad[:, :n] = xs
+    own = pad.reshape(B * tiles, -1, PER_THREAD).sum(-1)   # thread totals
+    agg = own.sum(-1)
+    inc = torch.full((B * tiles,), float("nan"), dtype=torch.float64)
+    first = torch.arange(B * tiles) // tiles * tiles
+    inc[first == torch.arange(B * tiles)] = agg[first == torch.arange(
+        B * tiles)]                      # a row's first tile: at once
+    excl = torch.zeros(B * tiles, dtype=torch.float64)
+    ids = torch.arange(B * tiles)
+    if order == "forward":
+        done_order = ids
+    elif order == "reverse":
+        done_order = ids.flip(0)
+    else:
+        done_order = ids[torch.randperm(len(ids), generator=torch.Generator()
+                                        .manual_seed(int(order)))]
+    passes = 0
+    for t in done_order.tolist():
+        if t == first[t]:
+            continue
+        end, e = t, 0.0
+        while True:
+            p = end - 1 - torch.arange(32 * LOOK)    # by distance
+            before = p < first[t]
+            vals = torch.where(before, 0.0, torch.where(
+                inc[p.clamp(min=0)].isnan(), agg[p.clamp(min=0)],
+                inc[p.clamp(min=0)]))
+            is_inc = before | ~inc[p.clamp(min=0)].isnan()
+            passes += 1
+            if is_inc.any():
+                stop = int(is_inc.nonzero()[0])
+                e += vals[: stop + 1].sum().item()
+                break
+            e += vals.sum().item()
+            end -= 32 * LOOK
+        excl[t] = e
+        inc[t] = e + agg[t]
+    thread_excl = own.cumsum(-1) - own                   # within the tile
+    run = (excl[:, None, None] + thread_excl[..., None]
+           + pad.reshape(B * tiles, -1, PER_THREAD).cumsum(-1))
+    out = run.reshape(B, -1)[:, :n].to(torch.float32)
+    return out.numpy(), passes
+
+
+@pytest.mark.parametrize("shape,order", [
+    ((3, 8192), "forward"),            # rows of one tile
+    ((2, 2 * 8192), "reverse"),        # rows of two tiles
+    ((2, 8192 + 1), "7"),              # two tiles, the last of one sample
+    ((1, 40 * 8192 + 77), "11"),       # many tiles, a ragged last one
+    ((3, 6 * 8192 - 5), "reverse"),
+    ((1, 131 * 8192 + 3), "reverse"),  # walks past 128 predecessors
+])
+def test_lookback_model_matches_plain_and_jax(jax_route, shape, order):
+    """The kernel's look-back schedule, modelled in torch in float64, stays
+    within one float32 ulp of cumsum_plain (the bar of chip_smoke.py's
+    scan check) in any finishing order, and within the JAX package's bar
+    of jscan.cumsum on both of its routes."""
+    assert tscan.TILE == 8192
+    x = np.random.RandomState(shape[-1] % 1000).randn(*shape).astype(
+        np.float32) + 0.25
+    got, passes = _lookback_model(x, order)
+    want = tscan.cumsum_plain(torch.as_tensor(x)).double().numpy()
+    bar = (2.0 ** -23 * np.abs(want)
+           + 1e-10 * np.cumsum(np.abs(x.astype(np.float64)), axis=-1))
+    assert np.all(np.abs(got - want) <= bar)
+    if shape[-1] > 129 * 8192 and order == "reverse":
+        assert passes > shape[0] * (-(-shape[-1] // 8192) - 1)
+    np.testing.assert_allclose(got, np.asarray(jscan.cumsum(jnp.asarray(x))),
+                               rtol=2e-4, atol=2e-3)
 
 
 def test_moving_sums_matches_jax(jax_route):

@@ -49,13 +49,9 @@ _SIGNATURES = {
 }
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
-
-
-def source_digest() -> str:
+def source_digest(csrc: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted(csrc.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -85,8 +81,8 @@ class KernelLibrary:
     def launch(self, fn: str, device: torch.device, *args) -> None:
         """Call launch function `fn` on `device`'s current stream."""
         with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = getattr(self.lib, fn)(*args, stream)
+            rc = getattr(self.lib, fn)(
+                *args, torch._C._cuda_getCurrentRawStream(device.index))
         if rc != 0:
             msg = self.lib.tpu_ofdm_error_string(rc).decode()
             raise RuntimeError(f"{fn} failed: CUDA error {rc} ({msg})")
@@ -94,8 +90,14 @@ class KernelLibrary:
 
 @functools.lru_cache(maxsize=1)
 def library() -> KernelLibrary:
-    """Build (if needed) and load the kernel library."""
-    out_dir = BUILD_ROOT / source_digest()
+    """Build (if needed) and load the kernel library of this checkout."""
+    return build_library(CSRC, BUILD_ROOT)
+
+
+def build_library(csrc: Path, build_root: Path) -> KernelLibrary:
+    """Build (if needed) and load the kernels of the sources in `csrc`,
+    under `build_root` (kernel_ab.py builds other trees this way)."""
+    out_dir = build_root / source_digest(csrc)
     so = out_dir / LIB_NAME
     log_path = out_dir / "build.log"
     seconds = 0.0
@@ -104,10 +106,11 @@ def library() -> KernelLibrary:
         tag = f"{os.getpid()}.tmp"
         tmp = out_dir / f"{LIB_NAME}.{tag}"
         nvcc = nvcc_path()
-        objs = [out_dir / f"{src.stem}.{tag}.o" for src in _sources()]
+        sources = sorted(csrc.glob("*.cu"))
+        objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
         t0 = time.perf_counter()
-        compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
-                     str(src)] for src, obj in zip(_sources(), objs)]
+        compiles = [[nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", "-o", str(obj),
+                     str(src)] for src, obj in zip(sources, objs)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for cmd in compiles]
@@ -161,8 +164,8 @@ def check_vector(t, name: str, dtype: torch.dtype,
 
 
 def complex_ptr(t: torch.Tensor | None) -> int | None:
-    """Device address of a complex64 tensor read as interleaved float2
+    """Device address of a complex64 tensor, read as interleaved float2
     (None for an absent or empty tensor)."""
     if t is None or t.numel() == 0:
         return None
-    return torch.view_as_real(t).data_ptr()
+    return t.data_ptr()

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from tpu_ofdm_torch.kernels.build import check_vector, complex_ptr, library
+from tpu_ofdm_torch.kernels.build import (KernelLibrary, check_vector,
+                                          complex_ptr, library)
 
 
 def gather_windows_plain(x: torch.Tensor, starts: torch.Tensor, length: int,
@@ -46,18 +47,24 @@ def gather_windows(x: torch.Tensor, starts: torch.Tensor, length: int,
         return gather_windows_plain(x, starts, length, head)
     if x.device.type != "cuda":
         raise ValueError(f"gather_windows: unsupported device {x.device}")
-    h = 0 if head is None else head.shape[-1]
-    B = x.shape[0] if x.ndim == 2 else 1
-    K = starts.shape[-1]
     out = torch.empty((*starts.shape, length), dtype=torch.complex64,
                       device=x.device)
-    library().launch(
-        "gather_launch", x.device, complex_ptr(head), h, h, complex_ptr(x),
-        x.shape[-1], x.shape[-1], B, starts.data_ptr(), K, length,
-        complex_ptr(out),
-    )
+    launch(library(), x, starts, head, out)
     gather_windows.launches += 1
     return out
 
 
 gather_windows.launches = 0  # kernel launches since the last reset
+
+
+def launch(lib: KernelLibrary, x: torch.Tensor, starts: torch.Tensor,
+           head: torch.Tensor | None, out: torch.Tensor) -> None:
+    """gather_launch of `lib` on checked CUDA tensors: out (..., K, F) from
+    [head | x] at `starts` (gather_windows; kernel_ab.py times other
+    builds through it)."""
+    h = 0 if head is None else head.shape[-1]
+    B = x.shape[0] if x.ndim == 2 else 1
+    lib.launch("gather_launch", x.device, complex_ptr(head), h, h,
+               complex_ptr(x), x.shape[-1], x.shape[-1], B,
+               starts.data_ptr(), starts.shape[-1], out.shape[-1],
+               complex_ptr(out))
