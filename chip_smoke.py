@@ -16,10 +16,17 @@ in order -- any failure raises and the script exits non-zero:
               every class and both parities, and timed cold (L2 flushed
               before each launch) and per call from the host beside
               x.unfold(-1, F, 1)[starts]; pfb at 8..512 channels with a
-              two-step tail carry; psd at 128, 384 and 1024 bins with two
-              windows, bin by bin; pfb and psd also at the shapes the paths
+              two-step tail carry, and the one-shot channelize on the card
+              against the CPU (a batched channelize_stream must raise);
+              psd at every covered N (16, 32, 64, 128 n1) with two
+              windows, bin by bin, on batched inputs with ragged rows
+              through psd_frames (one launch each; N 2048 must raise), and
+              beside torch.fft.fft; pfb and psd also at the shapes the paths
               give them; scan also at ragged lengths and along a leading
-              axis, beside float32 and float64 torch.cumsum
+              axis, beside float32 and float64 torch.cumsum; sc_metric raw
+              against its float64 plain version and gated bit for bit
+              against the raw form and the torch gate, frames at the
+              kernel's strip and halo edges, warm and cold
   4. main     streaming RX through StreamExecutor at block 2^25, K = 480,
               fft 64, cp 16, QPSK: 448 golden frames per block, 24 timed
               pushes x 3 trials; every frame must come back with the
@@ -46,9 +53,9 @@ in order -- any failure raises and the script exits non-zero:
   9. sync     the Schmidl-Cox metric on 4096 captures x 6144 samples of a
               port-TX frame at 3, 10 and 20 dB, CFO 0.2: the fine-CFO
               variance within 0.6-1.8 x the Moose formula; 16 captures card
-              vs CPU; sc_metric launched by schmidl_cox; moving_sum on
-              2^25 real and complex samples vs float64 window sums, the
-              only caller of scan here
+              vs CPU; the gated sc_metric launched once per schmidl_cox
+              call; moving_sum on 2^25 real and complex samples vs float64
+              window sums, the only caller of scan here
  10. report   one JSON line of per-kernel results, the nvidia-smi line, and
               the final {"ok": true, ...} line
 """
@@ -92,8 +99,11 @@ from tpu_ofdm_torch.ops.sync import (_select_from_rows,
                                      coarse_sliding_max_same, moving_sum,
                                      schmidl_cox)
 from tpu_ofdm_torch.spectrum import (channelizer_block, log_pwr_fft_block,
-                                     spectrum_probe_block, waterfall_block)
-from tpu_ofdm_torch.spectrum.channelizer import (lowpass_taps,
+                                     psd_frames, spectrum_probe_block,
+                                     waterfall_block)
+from tpu_ofdm_torch.spectrum.channelizer import (channelize,
+                                                 channelize_stream,
+                                                 lowpass_taps,
                                                  polyphase_decompose,
                                                  synthesize_bursts)
 from tpu_ofdm_torch.stream.block import (chain, complex_to_mag_squared,
@@ -145,7 +155,7 @@ SOURCES = {
 WRAPPERS = {"sc_detect": kdetect.sc_detect_rows,
             "gather": kgather.gather_windows,
             "pfb": kpfb.channelize_fused, "psd": kpsd.psd_fused,
-            "scan": kscan.cumsum, "sc_metric": kmetric.sc_sliding_metric}
+            "scan": kscan.cumsum, "sc_metric": kmetric.sc_sync_metric}
 
 # phase 3: the scan and sc_metric kernels' shapes ((L, shape) for sc_metric;
 # a row of BLOCK samples is the headline block with its frames); scan also
@@ -654,6 +664,7 @@ def check_pfb(dev, tag: str) -> dict:
         err = max(err, check_close(
             torch.cat([a, b]), want, 2e-4,
             f"pfb N {N} over 2^20 in two carried steps"))
+    err = max(err, check_channelize(dev))
     times, bounds = {}, {}
     for N, n in ((WB_CHANS, BLOCK), (SCAN_CHANS, SCAN_BLOCK)):
         poly = torch.as_tensor(polyphase_decompose(lowpass_taps(N), N),
@@ -680,36 +691,97 @@ def check_pfb(dev, tag: str) -> dict:
             "library_ms": None}
 
 
+def check_channelize(dev) -> float:
+    """The one-shot channelize on the card (pfb with a zero tail, launched
+    once) against channelize on the CPU at pfb's bar, at 64 and 512
+    channels; a batched channelize_stream on the card must raise.  Returns
+    the max abs error."""
+    err = 0.0
+    for N in (WB_CHANS, SCAN_CHANS):
+        taps = lowpass_taps(N)
+        x = noisy_buffers(1, (1 << 18) + 5, seed=26, dev=dev)[0]
+        before = kpfb.channelize_fused.launches
+        got = channelize(x, N, taps)
+        if kpfb.channelize_fused.launches != before + 1:
+            raise AssertionError("channelize on the card did not launch pfb")
+        err = max(err, check_close(got.cpu(), channelize(x.cpu(), N, taps),
+                                   2e-4, f"channelize N {N}, card vs CPU"))
+    poly = torch.as_tensor(polyphase_decompose(taps, N), device=dev)
+    tail = torch.zeros(kpfb.tail_len(N, poly.shape[0]), dtype=torch.complex64,
+                       device=dev)
+    try:
+        channelize_stream(x[: 2 * 4096].view(2, 4096), tail, N, poly)
+    except ValueError:
+        log("  channelize_stream of a batched x on the card raises")
+    else:
+        raise AssertionError("batched channelize_stream on the card did not "
+                             "raise")
+    return err
+
+
 def check_psd(dev, tag: str) -> dict:
-    """psd against its plain version on noise alone, at 128, 384 and 1024
-    bins with two windows and at the spectrum path's shapes: within
-    1e-4 * max (the bar of tests/test_kernels_psd.py), and bin by bin
-    (check_power); then kernel and plain times at the path's shapes."""
+    """psd against its plain version on noise alone at every covered N
+    (16, 32, 64 and 128 n1, n1 = 1..8) with two windows, at the spectrum
+    path's shapes, and on batched inputs with ragged rows ((3, 5 N + 7) and
+    the wideband PSD's (64, 2^19) at N 64): within 1e-4 * max (the bar of
+    tests/test_kernels_psd.py), and bin by bin (check_power).
+    spectrum.psd_frames must launch the kernel once on each batched input,
+    and raise at an uncovered N on the card.  Then kernel (warm and cold),
+    plain and torch.fft.fft times at the paths' shapes."""
     err = 0.0
     x = noisy_buffers(1, 1 << 20, seed=21, dev=dev)[0]
-    cases = [(x, "2^20", N, window) for N in (128, 384, 1024)
+    cases = [(x, "2^20", N, window) for N in kpsd.COVERED
              for window in ("hann", "blackman_harris")]
-    x = noisy_buffers(1, PSD_BLOCK, seed=22, dev=dev)[0]
-    cases += [(x, "2^22", 1024, "blackman_harris"), (x, "2^22", 1024, "hann"),
-              (x, "2^22", 512, "hann")]
+    xp = noisy_buffers(1, PSD_BLOCK, seed=22, dev=dev)[0]
+    cases += [(xp, "2^22", 1024, "blackman_harris"),
+              (xp, "2^22", 1024, "hann"), (xp, "2^22", 512, "hann")]
     for xs, size, N, window in cases:
         got = kpsd.psd_fused(xs, N, window)
         want = kpsd.psd_fused_plain(xs, N, window)
         what = f"psd N {N} {window} over {size}"
         err = max(err, check_close(got, want, 1e-4, what),
                   check_power(got, want, what))
-    times = {}
-    for N in (1024, 512):
-        times[N] = (cuda_ms(lambda: kpsd.psd_fused(x, N), 50),
-                    cuda_ms(lambda: kpsd.psd_fused_plain(x, N), 10))
-        log(f"  psd N {N} at 2^22 samples: kernel {times[N][0]:.4f} ms, "
-            f"plain {times[N][1]:.4f} ms  [{tag}]")
+    rows64 = noisy_buffers(WB_CHANS, BLOCK // WB_CHANS, seed=23, dev=dev)
+    for xs, N in ((noisy_buffers(3, 5 * 64 + 7, seed=24, dev=dev), 64),
+                  (noisy_buffers(3, 5 * 384 + 7, seed=25, dev=dev), 384),
+                  (rows64, 64)):
+        before = kpsd.psd_fused.launches
+        got = psd_frames(xs, N, "hann")
+        want = kpsd.psd_fused_plain(xs, N, "hann")
+        what = f"psd_frames N {N} over {tuple(xs.shape)}"
+        if kpsd.psd_fused.launches != before + 1 or got.shape != want.shape:
+            raise AssertionError(f"{what}: {kpsd.psd_fused.launches - before}"
+                                 f" launches, shape {tuple(got.shape)}")
+        err = max(err, check_close(got, want, 1e-4, what),
+                  check_power(got, want, what))
+    try:
+        psd_frames(xp, 2048)
+    except ValueError:
+        log("  psd_frames at N 2048 on the card raises")
+    else:
+        raise AssertionError("psd_frames at N 2048 on the card did not raise")
+    ms = cuda_ms(lambda: kpsd.psd_fused(xp, 1024), 50)
+    cold = cold_ms(lambda: kpsd.psd_fused(xp, 1024), GATHER_COLD_REPS)
+    plain = cuda_ms(lambda: kpsd.psd_fused_plain(xp, 1024), 10)
+    frames = xp.view(-1, 1024)
+    fft_only = cuda_ms(lambda: torch.fft.fft(frames), 50)
+    ms512 = cuda_ms(lambda: kpsd.psd_fused(xp, 512), 50)
+    ms64 = cuda_ms(lambda: kpsd.psd_fused(rows64, 64), 20)
+    cold64 = cold_ms(lambda: kpsd.psd_fused(rows64, 64), GATHER_COLD_REPS)
+    log(f"  psd N 1024 at 2^22 samples: kernel {ms:.4f} ms warm, {cold:.4f} "
+        f"cold; plain {plain:.4f}; torch.fft.fft alone on the (4096, 1024) "
+        f"frames {fft_only:.4f}; N 512 {ms512:.4f}; N 64 on (64, 2^19) "
+        f"{ms64:.4f} warm, {cold64:.4f} cold  [{tag}]")
     # 8 bytes in and 4 out per sample, the window; window product, FFT and
     # |.|^2 flops
     b = bound(12 * PSD_BLOCK + 4 * 1024, PSD_BLOCK * (5 + 5 * 10))
-    log_bound("psd N 1024 at 2^22 samples", times[1024][0], b)
-    return {"max_abs_err": err, "ms": times[1024][0],
-            "plain_ms": times[1024][1], **b, "library_ms": None}
+    log_bound("psd N 1024 at 2^22 samples", ms, b)
+    b64 = bound(12 * BLOCK + 4 * 64, BLOCK * (5 + 5 * 6))
+    log_bound("psd N 64 on (64, 2^19)", ms64, b64)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, **b,
+            "library_ms": None, "cold_ms": cold, "fft_only_ms": fft_only,
+            "rows64_ms": ms64, "rows64_cold_ms": cold64,
+            "rows64_bound_ms": b64["bound_ms"]}
 
 
 def scan_ratio(got, x, axis: int = -1) -> tuple[float, float]:
@@ -799,57 +871,108 @@ def pair_energy(r, L: int) -> torch.Tensor:
     return W[..., :-L] + W[..., L:]
 
 
+def metric_captures(B: int, n: int, L: int, dev) -> torch.Tensor:
+    """(B, n) complex64 noise with golden frames at the edges of the sc_metric
+    kernel's tiles (warp strips of 4096 outputs) and of their gate halos
+    (+-256 outputs), or, in rows too short for that, across the row."""
+    frame = golden_frame(HEADLINE.spec)
+    r = noisy_buffers(B, n, seed=L + B, dev=dev)
+    if n >= 1 << 16:
+        pos = [p for k in (3, 50, 200) for p in (4096 * k - len(frame) - 40,
+                                                 4096 * k + 10,
+                                                 4096 * k + 2200)]
+    else:
+        pos = list(range(1024, n - len(frame), max(n // 8, len(frame) + 7)))
+    add_frames(r, frame, pos)
+    return r
+
+
+def metric_ratios(r, L: int, got) -> dict:
+    """Worst ratios of sc_metric's raw (P, R, M) to its bars against the
+    float64 plain version, relative to the window pair's energy E = R1 + R2
+    (|P| <= E / 2): |dP|, |dR| <= 1e-5 E, and |dM| <= 1e-4 (E/R)(E/R + 2M),
+    what those bars allow M with a 10x margin."""
+    P, R, M = got
+    Pw, Rw, Mw = kmetric.sc_sliding_metric_plain(r, L)
+    E = pair_energy(r, L)
+    q = E / Rw.double()
+    bars = {"P": (P - Pw).abs().double() / (1e-5 * E),
+            "R": (R - Rw).abs().double() / (1e-5 * E),
+            "M": (M - Mw).abs().double() / (1e-4 * q * (q + 2 * Mw))}
+    return {k: v.max().item() for k, v in bars.items()}
+
+
+def metric_gate_width(L: int) -> int:
+    """schmidl_cox's gate width, 2 sym_len + 1, for fft 2L, cp fft / 4."""
+    return 2 * (2 * L + L // 2) + 1
+
+
 def check_sc_metric(dev, tag: str) -> dict:
-    """sc_sliding_metric against its float64 plain version at L 32 on the
-    headline block (448 golden frames over noise, 2^25) and on (4096, 6144)
-    captures, and at L 128 and 192 on (2, 2^20).  Bars relative to the
-    window pair's energy E = R1 + R2 (|P| <= E / 2): |dP|, |dR| <= 1e-5 E,
-    and |dM| <= 1e-4 (E/R) (E/R + 2M), what those bars allow M with a 10x
-    margin.  Then kernel and plain times."""
+    """sc_sliding_metric (raw) against its float64 plain version at L 32 on
+    the headline block (448 golden frames over noise, 2^25) and on (4096,
+    6144) captures, and at L 128 and 192 on (2, 2^20) with frames at the
+    tile and halo edges, at metric_ratios' bars; the gated form
+    (sc_sync_metric, schmidl_cox's) against the raw form followed by the
+    torch cap and gate, on the same input on the card: P, R and M bit for
+    bit.  Then raw and gated times, warm and cold, and the plain time."""
     err = 0.0
     times = {}
     spec = HEADLINE.spec
-    frame = golden_frame(spec)
     for L, shape in METRIC_CASES:
         if shape[1] == BLOCK:
-            r = staged_blocks(spec, 1, dev, seed=5)[0]
+            r = staged_blocks(spec, 1, dev, seed=5)[0][None]
         else:
-            r = noisy_buffers(shape[0], shape[1], seed=L + shape[0], dev=dev)
-            add_frames(r, frame, list(range(1024, shape[1] - len(frame),
-                                            max(shape[1] // 8,
-                                                len(frame) + 7))))
+            r = metric_captures(shape[0], shape[1], L, dev)
         P, R, M = kmetric.sc_sliding_metric(r, L)
-        Pw, Rw, Mw = kmetric.sc_sliding_metric_plain(r, L)
-        E = pair_energy(r, L)
-        q = E / Rw.double()
-        bars = {"P": (P - Pw).abs().double() / (1e-5 * E),
-                "R": (R - Rw).abs().double() / (1e-5 * E),
-                "M": (M - Mw).abs().double() / (1e-4 * q * (q + 2 * Mw))}
-        worst = {k: v.max().item() for k, v in bars.items()}
+        worst = metric_ratios(r, L, (P, R, M))
         if not all(w <= 1.0 for w in worst.values()):
             raise AssertionError(f"sc_metric L {L} {shape}: worst ratios to "
                                  f"the bars {worst}")
+        Pw, Rw, Mw = kmetric.sc_sliding_metric_plain(r, L)
         e = max((P - Pw).abs().max().item(), (R - Rw).abs().max().item(),
                 (M - Mw).abs().max().item())
         err = max(err, e)
+        del Pw, Rw, Mw
+        w = metric_gate_width(L)
+        Pg, Rg, Mg = kmetric.sc_sync_metric(r, L, w)
+        Mc = kmetric.gate_metric(M, R, w)
+        if not (torch.equal(Pg, P) and torch.equal(Rg, R)
+                and torch.equal(Mg, Mc)):
+            raise AssertionError(f"sc_metric L {L} {shape}: the gated form "
+                                 "differs from the raw form and the torch "
+                                 "gate")
+        gated = f"gated form exact, {int((Mg > 0).sum())} M > 0"
+        del P, R, M, Pg, Rg, Mg, Mc
+        t = ""
         if L == 32:
-            times[shape] = (
-                cuda_ms(lambda: kmetric.sc_sliding_metric(r, L), 20),
-                cuda_ms(lambda: kmetric.sc_sliding_metric_plain(r, L), 3))
-        t = (f"; kernel {times[shape][0]:.4f} ms, plain "
-             f"{times[shape][1]:.4f} ms" if L == 32 else "")
+            raw = lambda: kmetric.sc_sliding_metric(r, L)      # noqa: E731
+            gate = lambda: kmetric.sc_sync_metric(r, L, w)     # noqa: E731
+            times[shape] = {
+                "ms": cuda_ms(raw, 20), "cold_ms": cold_ms(raw, 10),
+                "gated_ms": cuda_ms(gate, 20),
+                "gated_cold_ms": cold_ms(gate, 10),
+                "plain_ms": cuda_ms(
+                    lambda: kmetric.sc_sliding_metric_plain(r, L), 3)}
+            t = "; " + ", ".join(f"{k} {v:.4f}"
+                                 for k, v in times[shape].items())
         log(f"  sc_metric L {L} {shape}: max abs err {e:.3g}, worst ratio "
             f"to the bars P {worst['P']:.3g} R {worst['R']:.3g} M "
-            f"{worst['M']:.3g}{t}  [{tag}]")
-    ms, plain_ms = times[METRIC_CASES[0][1]]
-    L, shape = METRIC_CASES[0]
-    n, nd = math.prod(shape), shape[0] * (shape[1] - 2 * L + 1)
-    # 8 bytes in per sample; P (8), R (4) and M (4) out per window pair;
-    # ~20 flops per sample
-    b = bound(8 * n + 16 * nd, 20 * n)
-    log_bound(f"sc_metric L {L} {shape}", ms, b)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": None}
+            f"{worst['M']:.3g}; {gated}{t}  [{tag}]")
+    bounds = {}
+    for L, shape in METRIC_CASES[:2]:
+        n, nd = math.prod(shape), shape[0] * (shape[1] - 2 * L + 1)
+        # 8 bytes in per sample; P (8), R (4) and M (4) out per window
+        # pair; ~20 flops per sample
+        bounds[shape] = bound(8 * n + 16 * nd, 20 * n)
+        log_bound(f"sc_metric L {L} {shape}", times[shape]["ms"],
+                  bounds[shape])
+    head, caps = (shape for _, shape in METRIC_CASES[:2])
+    return {"max_abs_err": err, **times[head], **bounds[head],
+            "library_ms": None,
+            "captures_ms": times[caps]["ms"],
+            "captures_cold_ms": times[caps]["cold_ms"],
+            "captures_gated_ms": times[caps]["gated_ms"],
+            "captures_bound_ms": bounds[caps]["bound_ms"]}
 
 
 def tone(n: int, k: int, period: int, dev, amp: float = 1.0) -> torch.Tensor:
@@ -1382,6 +1505,10 @@ def phase_sync(dev, tag: str) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches("sync", *names)
+    if launches["sc_metric"] != len(SYNC_SNRS):
+        raise AssertionError(f"sync: {launches['sc_metric']} sc_metric "
+                             f"launches for {len(SYNC_SNRS)} schmidl_cox "
+                             "calls on the card")
     log(f"sync: 3 x {SYNC_TRIALS} captures and 2 moving sums of 2^25, with "
         f"the CPU comparisons, in {dt:.4f} s  [{tag}]")
     return {"launches": launches}

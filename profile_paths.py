@@ -45,7 +45,8 @@ STEPS = 5                # profiled pushes per cell
 # the port's kernels (csrc/*.cu), as the trace names them
 PORT_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)")
 PORT_KERNELS = {"sc_detect_l32_kernel", "sc_detect_kernel", "gather_kernel",
-                "pfb_kernel", "psd_kernel", "scan_kernel", "sc_metric_kernel"}
+                "pfb_kernel", "psd_kernel", "psd_tile_kernel", "scan_kernel",
+                "sc_metric_l32_kernel", "sc_metric_kernel"}
 
 
 class Loopback:

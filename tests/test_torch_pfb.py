@@ -12,6 +12,7 @@ import torch
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
+from tests.golden import golden_ofdm as G
 from tpu_ofdm.kernels import pfb as jpfb
 from tpu_ofdm.spectrum import channelizer as jch
 from tpu_ofdm.stream import executor as jex
@@ -182,3 +183,47 @@ def test_wrapper_rejects_bad_inputs(bad):
         poly = poly.double()
     with pytest.raises((TypeError, ValueError)):
         tpfb.channelize_fused(x, poly, tail=tail)
+
+
+@pytest.mark.parametrize("n_chan", [8, 64, 512])
+def test_channelize_fused_zero_tail_is_channelize(n_chan):
+    """channelize on the card runs channelize_fused with a zero tail (the
+    golden model's zero history): on the CPU that route equals the port's
+    and the JAX package's channelize and the golden model, ragged tail
+    dropped."""
+    taps = jch.lowpass_taps(n_chan)
+    rows = 24 if n_chan > 128 else 200
+    x = _rand(n_chan * rows + 5, seed=n_chan + 1)
+    n = rows * n_chan
+    got = tpfb.channelize_fused(torch.as_tensor(x[:n]), _poly(n_chan, taps))
+    _assert_close(got, jch.channelize(jnp.asarray(x), n_chan, taps))
+    _assert_close(got, G.pfb_channelize(x.astype(np.complex128), n_chan,
+                                        taps))
+    _assert_close(tch.channelize(torch.as_tensor(x), n_chan, taps), got)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("ndim", [1, 2])
+@pytest.mark.parametrize("n_chan", [8, 48, 64, 128, 384, 512, 640])
+def test_channelize_route_for_every_case(device, ndim, n_chan):
+    """CPU: the plain chain; the card: pfb for a 1-D stream at a channel
+    count it covers, a ValueError otherwise (never the plain chain)."""
+    route = tch.channelize_route(device, ndim, n_chan)
+    if device == "cpu":
+        assert route == "plain"
+    else:
+        assert route == ("kernel" if ndim == 1 and tpfb.supported(n_chan)
+                         else "raise")
+
+
+def test_channelize_refuses_an_uncovered_route():
+    """The decision reaches the public functions: a tensor on a device that
+    is not the CPU (here the meta device) with a batched x raises before
+    any work."""
+    x = torch.zeros((2, 64 * 8), dtype=torch.complex64, device="meta")
+    with pytest.raises(ValueError):
+        tch.channelize(x, 64, tch.lowpass_taps(64))
+    with pytest.raises(ValueError):
+        tch.channelize_stream(x, torch.zeros(128, dtype=torch.complex64,
+                                             device="meta"), 64,
+                              _poly(64).to("meta"))

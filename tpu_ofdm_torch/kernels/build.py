@@ -44,8 +44,10 @@ _SIGNATURES = {
     "gather_launch": [_P, _LL, _LL, _P, _LL, _LL, _I, _P, _I, _I, _P, _P],
     "pfb_launch": [_P, _LL, _P, _LL, _P, _I, _I, _P, _P],
     "psd_launch": [_P, _LL, _P, _I, _P, _P],
+    "psd_rows_launch": [_P, _LL, _LL, _LL, _P, _I, _P, _P],
     "scan_launch": [_P, _LL, _LL, _P, _LL, _P, _P],
     "sc_metric_launch": [_P, _LL, _LL, _I, _P, _P, _P, _P],
+    "sc_sync_metric_launch": [_P, _LL, _LL, _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -133,7 +135,10 @@ def build_library(csrc: Path, build_root: Path) -> KernelLibrary:
             obj.unlink()
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        # an earlier tree's library (kernel_ab.py) may lack newer entries
+        fn = getattr(lib, name, None)
+        if fn is None:
+            continue
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.tpu_ofdm_error_string.argtypes = [ctypes.c_int]

@@ -9,10 +9,11 @@ top-K -- on the 128x smaller row arrays.  Every shape is static: up to
 the host.  Detection and selection take an optional leading batch axis
 (the wideband receiver's channels; the JAX package vmaps instead).
 
-The diagnostic half -- `schmidl_cox` (full-length P, R, M; the CFO
-estimator statistics read it) and `moving_sum` -- runs the sc_metric and
-scan kernels respectively on CUDA tensors and their plain versions on the
-CPU.
+The diagnostic half -- `schmidl_cox` (full-length P, R and the gated M;
+the CFO estimator statistics read it) and `moving_sum` -- runs the
+sc_metric (gated form) and scan kernels respectively on CUDA tensors and
+their plain versions on the CPU.  The sliding maxima live beside the
+sc_metric kernel, whose gate they define.
 """
 
 from __future__ import annotations
@@ -21,52 +22,12 @@ import math
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from tpu_ofdm_torch.config import OfdmSpec
 from tpu_ofdm_torch.kernels import scan
 from tpu_ofdm_torch.kernels.sc_detect import ROW, sc_detect_rows
-from tpu_ofdm_torch.kernels.sc_metric import sc_sliding_metric
-
-
-def sliding_max(x: torch.Tensor, w: int) -> torch.Tensor:
-    """Valid-mode sliding max along the last axis: out[i] = max x[i:i+w],
-    length n - w + 1, by log-doubling (O(log w) shifted maxima)."""
-    n = x.shape[-1]
-    if w <= 1:
-        return x
-    y = x
-    p = 1
-    while p * 2 <= w:
-        y = torch.maximum(y[..., :-p], y[..., p:])
-        p *= 2
-    # y[i] = max x[i:i+p]; two p-windows cover [i, i+w)
-    if p < w:
-        y = torch.maximum(y[..., : n - w + 1], y[..., w - p: w - p + n - w + 1])
-    return y
-
-
-def sliding_max_same(x: torch.Tensor, w: int, pad_left: int) -> torch.Tensor:
-    """Same-length sliding max: out[i] = max x[i-pad_left : i-pad_left+w]
-    (out-of-range treated as -inf)."""
-    padded = F.pad(x, (pad_left, w - 1 - pad_left), value=float("-inf"))
-    return sliding_max(padded, w)
-
-
-def coarse_sliding_max_same(x: torch.Tensor, w: int,
-                            g: int = 128) -> torch.Tensor:
-    """Block-granular same-length sliding max: out[i] is the max over a
-    window that contains the centred w-window and spans at most w + 3g
-    samples (maxima per g-block, the log-doubling ladder on the block
-    array, broadcast back)."""
-    n = x.shape[-1]
-    nb = -(-n // g)
-    xb = F.pad(x, (0, nb * g - n), value=float("-inf"))
-    rowmax = xb.reshape(*x.shape[:-1], nb, g).amax(-1)
-    k = -(-(w // 2 + g) // g)
-    wm = sliding_max_same(rowmax, 2 * k + 1, pad_left=k)
-    full = wm[..., None].expand(*wm.shape, g)
-    return full.reshape(*x.shape[:-1], nb * g)[..., :n]
+from tpu_ofdm_torch.kernels.sc_metric import (  # noqa: F401
+    coarse_sliding_max_same, sc_sync_metric, sliding_max, sliding_max_same)
 
 
 def moving_sum(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -86,24 +47,15 @@ class SyncMetric(NamedTuple):
     energy: torch.Tensor   # R(d), float32, same length
 
 
-def _cap(M: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
-    """M capped at 2 and zeroed where R = 0 (genuine M <= ~1; in exact
-    silence R is 0 while |P|^2 may hold cancellation residue)."""
-    return torch.where(R > 0.0, M.clamp(max=2.0), 0.0)
-
-
 def schmidl_cox(spec: OfdmSpec, r: torch.Tensor) -> SyncMetric:
     """The Schmidl-Cox metric over a sample block (..., n), last axis:
-    sc_sliding_metric (the kernel on CUDA, its float64 plain version on the
-    CPU), with M capped at 2 and zeroed where R = 0 (the JAX package's CPU
-    route; its TPU kernel leaves M uncapped, ROADMAP sec. C), then zeroed
-    where R is below 5% of the local energy (a sliding max over ~2
-    symbols)."""
-    P, R, M = sc_sliding_metric(r.to(torch.complex64).contiguous(),
-                                spec.fft_len // 2)
-    M = _cap(M, R)
-    local = coarse_sliding_max_same(R, 2 * spec.sym_len + 1)
-    M = torch.where(R > 0.05 * local, M, 0.0)
+    P and R of the window pairs, M capped at 2 and zeroed where R = 0 (the
+    JAX package's CPU route; its TPU kernel leaves M uncapped, ROADMAP sec.
+    C), then zeroed where R is below 5% of the local energy (a sliding max
+    over ~2 symbols).  One sc_sync_metric kernel on CUDA; its plain version
+    (float64 window sums, then the torch gate) on the CPU."""
+    P, R, M = sc_sync_metric(r.to(torch.complex64).contiguous(),
+                             spec.fft_len // 2, 2 * spec.sym_len + 1)
     return SyncMetric(M, P, R)
 
 

@@ -6,9 +6,11 @@ reference's arm order (arm a at output m consumes x[m*N + (N-1-a)]; channel
 k centred at k*fs/N; output scaled by N).  The streaming step runs the
 fused CUDA kernel (kernels/pfb.py) and carries the last `stream_tail_len`
 RAW samples, the JAX package's carry layout, so a carry saved by either
-package resumes in the other.  The one-shot `channelize` and the channel
-counts the kernel does not cover take the plain chain, where the JAX
-package takes its XLA chain.
+package resumes in the other; the one-shot `channelize` runs the same
+kernel with a zero tail.  On the card a 1-D stream at a channel count the
+kernel covers launches it and anything else raises (`channelize_route`);
+on the CPU the plain chain runs, where the JAX package takes its XLA
+chain.
 
 The numpy table functions (`lowpass_taps`, `polyphase_decompose`) and the
 host-side synthesis filterbank are the reference's, re-implemented because
@@ -56,11 +58,34 @@ def device_poly(taps: np.ndarray, n_chan: int):
         lambda device: torch.as_tensor(poly, device=device))
 
 
+def channelize_route(device_type: str, ndim: int, n_chan: int) -> str:
+    """How the channelizer runs a stream x of rank `ndim` on a device of
+    this type: "plain" (the CPU), "kernel" (a 1-D stream at a channel
+    count pfb covers) or "raise"."""
+    if device_type == "cpu":
+        return "plain"
+    return "kernel" if ndim == 1 and pfb.supported(n_chan) else "raise"
+
+
+def _check_route(x: torch.Tensor, n_chan: int, what: str) -> str:
+    route = channelize_route(x.device.type, x.ndim, n_chan)
+    if route == "raise":
+        raise ValueError(f"{what}: x of shape {tuple(x.shape)} at {n_chan} "
+                         f"channels on {x.device}; the pfb kernel takes a "
+                         "1-D stream at n_chan <= 128 dividing 128, or a "
+                         "multiple of 128 up to 512")
+    return route
+
+
 def channelize(x: torch.Tensor, n_chan: int, taps: np.ndarray) -> torch.Tensor:
     """One-shot channelizer over a sample buffer (zero history), matching
-    the golden model: (..., n_samples) -> (..., n_out, n_chan)."""
+    the golden model: (..., n_samples) -> (..., n_out, n_chan).  On the
+    card x is 1-D and the pfb kernel runs with a zero tail."""
     poly = torch.as_tensor(polyphase_decompose(np.asarray(taps), n_chan),
                            device=x.device)
+    if _check_route(x, n_chan, "channelize") == "kernel":
+        n = x.shape[-1] // n_chan * n_chan
+        return pfb.channelize_fused(x[:n].contiguous(), poly)
     rows = commutator_rows(x, n_chan)
     pad = rows.new_zeros((*rows.shape[:-2], poly.shape[0] - 1, n_chan))
     return channelize_ext(torch.cat([pad, rows], dim=-2), poly)
@@ -84,7 +109,7 @@ def channelize_stream(x: torch.Tensor, tail: torch.Tensor, n_chan: int,
     so the caller may reuse x's memory."""
     J = poly.shape[0]
     C = pfb.tail_len(n_chan, J)
-    if x.ndim == 1 and pfb.supported(n_chan):
+    if _check_route(x, n_chan, "channelize_stream") == "kernel":
         out = pfb.channelize_fused(x, poly, tail=tail)
     else:
         k = (J - 1) * n_chan

@@ -2,9 +2,10 @@
 IIR averaging (counterpart of tpu_ofdm/spectrum/psd.py).
 
 Normalization matches the golden model (tests/golden/golden_ofdm.log_pwr_fft):
-power divided by sum(w^2) * fft_len, folded into the window.  1-D inputs
-at the lengths the fused kernel covers run kernels/psd.py; everything else
-takes its plain chain, where the JAX package takes its XLA chain.
+power divided by sum(w^2) * fft_len, folded into the window.  On the card
+every input, 1-D or batched (..., n), runs the psd kernel (kernels/psd.py)
+at the lengths it covers and raises at any other; on the CPU the plain
+chain runs, where the JAX package takes its XLA chain.
 """
 
 from __future__ import annotations
@@ -16,13 +17,26 @@ from tpu_ofdm_torch.kernels import psd as kpsd
 from tpu_ofdm_torch.stream.block import Block
 
 
+def psd_route(device_type: str, fft_len: int) -> str:
+    """How psd_frames computes frames of fft_len on a device of this type:
+    "plain" (the CPU), "kernel" (a length the psd kernel covers) or
+    "raise"."""
+    if device_type == "cpu":
+        return "plain"
+    return "kernel" if kpsd.supported(fft_len) else "raise"
+
+
 def psd_frames(x: torch.Tensor, fft_len: int,
                window: str = "hann") -> torch.Tensor:
     """(..., n) samples -> (..., n//fft_len, fft_len) linear-power PSD
-    frames."""
-    if x.ndim == 1 and kpsd.supported(fft_len):
-        return kpsd.psd_fused(x, fft_len, window)
-    return kpsd.psd_fused_plain(x, fft_len, window)
+    frames; each row's ragged tail is dropped."""
+    route = psd_route(x.device.type, fft_len)
+    if route == "raise":
+        raise ValueError(f"psd_frames: fft_len {fft_len} on {x.device}; the "
+                         f"psd kernel covers {kpsd.COVERED}")
+    if route == "plain":
+        return kpsd.psd_fused_plain(x, fft_len, window)
+    return kpsd.psd_fused(x.to(torch.complex64), fft_len, window)
 
 
 def iir_average(pwr: torch.Tensor, alpha: float,
