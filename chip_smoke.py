@@ -17,11 +17,10 @@ in order -- any failure raises and the script exits non-zero:
               before each launch) and per call from the host beside
               x.unfold(-1, F, 1)[starts]; pfb at 8..512 channels with a
               two-step tail carry, and the one-shot channelize on the card
-              against the CPU (a batched channelize_stream must raise);
-              psd at every covered N (16, 32, 64, 128 n1) with two
-              windows, bin by bin, on batched inputs with ragged rows
-              through psd_frames (one launch each; N 2048 must raise), and
-              beside torch.fft.fft; pfb and psd also at the shapes the paths
+              against the CPU; psd at every covered N (16, 32, 64, 128 n1)
+              with two windows, bin by bin, on batched inputs with ragged
+              rows through psd_frames (one launch each), and beside
+              torch.fft.fft; pfb and psd also at the shapes the paths
               give them; scan also at ragged lengths and along a leading
               axis, beside float32 and float64 torch.cumsum; sc_metric raw
               against its float64 plain version and gated bit for bit
@@ -55,18 +54,40 @@ in order -- any failure raises and the script exits non-zero:
               variance within 0.6-1.8 x the Moose formula; 16 captures card
               vs CPU; the gated sc_metric launched once per schmidl_cox
               call; moving_sum on 2^25 real and complex samples vs float64
-              window sums, the only caller of scan here
- 10. report   one JSON line of per-kernel results, the nvidia-smi line, and
+              window sums
+ 10. flowgraph  the graph layer, the examples and the apps: (a) phase 4's
+              stream through a one-node grc.build spec, its every-frame
+              assert and one sc_detect and one gather launch per push, its
+              rate beside phase 4's; (b) examples/*.json loaded by grc --
+              psd_probe, decimate_and_measure and channelizer_waterfall
+              through run_flowgraph.main on the card and on the CPU
+              (outputs bin by bin; psd, pfb launched once a step), the
+              loopback example fed PDU batches (every PDU back once); (c) a
+              power meter |x|^2 -> moving_average(1024) -> nlog10 on 2^22
+              pushes, one scan launch each, against the CPU; (d) the apps:
+              ofdm_loopback (64 frames, 25 dB, CFO 0.1, multipath), the
+              512-channel power scan (flags exactly the tone channels) and
+              the spectrum logger (snapshots as on the CPU); (e) the C1
+              routes: psd_frames at N 2048 and 48 and channelize of a
+              batched x or at 48 channels compute with no launch and equal
+              the CPU, every covered N launches psd; (f) one push of (a)
+              and one of the DDC graph under sync-debug "error"
+ 11. report   one JSON line of per-kernel results, the nvidia-smi line, and
               the final {"ok": true, ...} line
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
+import contextlib
+import io
 import json
 import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -75,10 +96,16 @@ import torch
 
 # The golden model is loaded by path: an installed third-party package may
 # ship a top-level `tests` package that shadows this checkout's tests/.
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"
-                       / "golden"))
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "tests" / "golden"))
 import golden_ofdm as G  # noqa: E402
+from tpu_ofdm_torch import grc
+from tpu_ofdm_torch.apps import (ofdm_loopback, run_flowgraph,
+                                 spectrum_logger, wideband_scanner)
+from tpu_ofdm_torch.apps.common import add_source_args, make_source
+from tpu_ofdm_torch.apps.wideband_scanner import power_scan_block
 from tpu_ofdm_torch.config import OfdmConfig, StreamConfig
+from tpu_ofdm_torch.io import file_sink
 from tpu_ofdm_torch.kernels import build
 from tpu_ofdm_torch.kernels import gather as kgather
 from tpu_ofdm_torch.kernels import pfb as kpfb
@@ -93,21 +120,19 @@ from tpu_ofdm_torch.modem.rx_stream import (collect_frames, history_len,
 from tpu_ofdm_torch.modem.wideband import (collect_wideband_frames,
                                            wideband_rx_block)
 from tpu_ofdm_torch.modem.tx import tx_frame
-from tpu_ofdm_torch.modem.tx_stream import TxStreamIn, empty_tx_in
+from tpu_ofdm_torch.modem.tx_stream import (TxStreamIn, empty_tx_in,
+                                            queue_tx_in)
 from tpu_ofdm_torch.ops.channel import channel_block
 from tpu_ofdm_torch.ops.sync import (_select_from_rows,
                                      coarse_sliding_max_same, moving_sum,
                                      schmidl_cox)
-from tpu_ofdm_torch.spectrum import (channelizer_block, log_pwr_fft_block,
-                                     psd_frames, spectrum_probe_block,
-                                     waterfall_block)
+from tpu_ofdm_torch.spectrum import (log_pwr_fft_block, psd_frames,
+                                     spectrum_probe_block, waterfall_block)
 from tpu_ofdm_torch.spectrum.channelizer import (channelize,
                                                  channelize_stream,
                                                  lowpass_taps,
                                                  polyphase_decompose,
                                                  synthesize_bursts)
-from tpu_ofdm_torch.stream.block import (chain, complex_to_mag_squared,
-                                         stateless)
 from tpu_ofdm_torch.stream.executor import StreamExecutor
 
 FRAMES_PER_BLOCK = 448
@@ -625,20 +650,26 @@ def check_close(got, want, bar: float, what: str) -> float:
     return e
 
 
-def check_power(got, want, what: str, floor: float | None = None) -> float:
-    """Linear power, bin by bin: |got - want| <= 1e-4 * (want + floor),
-    where floor is the median of `want` (its noise floor per bin) unless
-    given.  Every bin is held to its own size, not to the strongest one's:
-    a wrong or empty bin among the noise fails.  Returns the max abs
-    error."""
+def power_ratio(got, want, floor: float | None = None):
+    """(the worst bin's |got - want| / (1e-4 * (want + floor)), floor):
+    floor is the median of `want` (its noise floor per bin) unless
+    given."""
     got, want = got.double(), want.double()
     floor = want.median().item() if floor is None else floor
     err = (got - want).abs()
-    ratio = (err / (1e-4 * (want.abs() + floor))).max().item()
+    return (err / (1e-4 * (want.abs() + floor))).max().item(), floor
+
+
+def check_power(got, want, what: str, floor: float | None = None) -> float:
+    """Linear power, bin by bin: |got - want| <= 1e-4 * (want + floor),
+    floor as power_ratio takes it.  Every bin is held to its own size, not
+    to the strongest one's: a wrong or empty bin among the noise fails.
+    Returns the max abs error."""
+    ratio, floor = power_ratio(got, want, floor)
     if not ratio <= 1.0:
         raise AssertionError(f"{what}: a bin is off by {ratio:.3g} x its "
                              f"bar 1e-4 * (power + {floor:.3g})")
-    e = err.max().item()
+    e = (got.double() - want.double()).abs().max().item()
     log(f"  {what}: max abs err {e:.3g}, worst bin at {ratio:.3g} of its "
         f"bar (floor {floor:.3g})")
     return e
@@ -694,8 +725,7 @@ def check_pfb(dev, tag: str) -> dict:
 def check_channelize(dev) -> float:
     """The one-shot channelize on the card (pfb with a zero tail, launched
     once) against channelize on the CPU at pfb's bar, at 64 and 512
-    channels; a batched channelize_stream on the card must raise.  Returns
-    the max abs error."""
+    channels.  Returns the max abs error."""
     err = 0.0
     for N in (WB_CHANS, SCAN_CHANS):
         taps = lowpass_taps(N)
@@ -706,16 +736,6 @@ def check_channelize(dev) -> float:
             raise AssertionError("channelize on the card did not launch pfb")
         err = max(err, check_close(got.cpu(), channelize(x.cpu(), N, taps),
                                    2e-4, f"channelize N {N}, card vs CPU"))
-    poly = torch.as_tensor(polyphase_decompose(taps, N), device=dev)
-    tail = torch.zeros(kpfb.tail_len(N, poly.shape[0]), dtype=torch.complex64,
-                       device=dev)
-    try:
-        channelize_stream(x[: 2 * 4096].view(2, 4096), tail, N, poly)
-    except ValueError:
-        log("  channelize_stream of a batched x on the card raises")
-    else:
-        raise AssertionError("batched channelize_stream on the card did not "
-                             "raise")
     return err
 
 
@@ -725,8 +745,8 @@ def check_psd(dev, tag: str) -> dict:
     path's shapes, and on batched inputs with ragged rows ((3, 5 N + 7) and
     the wideband PSD's (64, 2^19) at N 64): within 1e-4 * max (the bar of
     tests/test_kernels_psd.py), and bin by bin (check_power).
-    spectrum.psd_frames must launch the kernel once on each batched input,
-    and raise at an uncovered N on the card.  Then kernel (warm and cold),
+    spectrum.psd_frames must launch the kernel once on each batched input.
+    Then kernel (warm and cold),
     plain and torch.fft.fft times at the paths' shapes."""
     err = 0.0
     x = noisy_buffers(1, 1 << 20, seed=21, dev=dev)[0]
@@ -754,12 +774,6 @@ def check_psd(dev, tag: str) -> dict:
                                  f" launches, shape {tuple(got.shape)}")
         err = max(err, check_close(got, want, 1e-4, what),
                   check_power(got, want, what))
-    try:
-        psd_frames(xp, 2048)
-    except ValueError:
-        log("  psd_frames at N 2048 on the card raises")
-    else:
-        raise AssertionError("psd_frames at N 2048 on the card did not raise")
     ms = cuda_ms(lambda: kpsd.psd_fused(xp, 1024), 50)
     cold = cold_ms(lambda: kpsd.psd_fused(xp, 1024), GATHER_COLD_REPS)
     plain = cuda_ms(lambda: kpsd.psd_fused_plain(xp, 1024), 10)
@@ -1000,9 +1014,19 @@ def staged_blocks(spec, n_blocks, dev, seed=0):
 def phase_main(dev, tag: str) -> dict:
     spec = HEADLINE.spec
     sc = StreamConfig(block_size=BLOCK, max_frames_per_block=SLOTS)
-    H = history_len(spec)
     blocks, pos = staged_blocks(spec, 4, dev, seed=0)
     ex = StreamExecutor(rx_stream_block(spec, sc), BLOCK, device=dev)
+    return headline_trials(ex, blocks, pos, "main", tag)
+
+
+def headline_trials(ex, blocks, pos, what: str, tag: str) -> dict:
+    """The headline stream through `ex`: a warm-up, then 3 timed trials of
+    N_TIMED pushes from a reset carry, each ending with a readback; one
+    sc_detect and one gather launch per push; one more push under sync
+    debug "error"; every frame back with its payload, crc_ok and a start
+    inside its CP."""
+    spec = HEADLINE.spec
+    H = history_len(spec)
 
     def trial():
         torch.cuda.synchronize()
@@ -1014,15 +1038,12 @@ def phase_main(dev, tag: str) -> dict:
 
     trial()                                   # warm-up
     ex.reset()
-    kdetect.sc_detect_rows.launches = 0
-    kgather.gather_windows.launches = 0
+    reset_launches("sc_detect", "gather")
     results = [trial() for _ in range(3)]
-    launches = {"sc_detect": kdetect.sc_detect_rows.launches,
-                "gather": kgather.gather_windows.launches}
-    log(f"main: launches in the timed run {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"main path never launched {name}")
+    launches = read_launches(what, "sc_detect", "gather")
+    if set(launches.values()) != {3 * N_TIMED}:
+        raise AssertionError(f"{what}: {launches} launches in "
+                             f"{3 * N_TIMED} pushes, want one each a push")
     # a step must enqueue without waiting on the host: any synchronizing
     # call inside push() raises in this mode
     torch.cuda.set_sync_debug_mode("error")
@@ -1030,14 +1051,15 @@ def phase_main(dev, tag: str) -> dict:
         ex.push(blocks[0])
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    log("main: one push under sync debug mode 'error': no host sync")
+    log(f"{what}: one push under sync debug mode 'error': no host sync")
 
     dt = min(r[0] for r in results)
     n_frames = results[0][1]
     expect = FRAMES_PER_BLOCK * N_TIMED
     tail = -(-H * FRAMES_PER_BLOCK // BLOCK) + 1
     if not expect - tail <= n_frames <= expect:
-        raise AssertionError(f"recovered {n_frames} frames, expect {expect}")
+        raise AssertionError(f"{what}: recovered {n_frames} frames, expect "
+                             f"{expect}")
 
     frames = collect_frames(results[0][2], block_size=BLOCK, hist=H)
     want = [i * BLOCK + p for i in range(N_TIMED) for p in pos]
@@ -1045,14 +1067,14 @@ def phase_main(dev, tag: str) -> dict:
     bad = [f for f in frames
            if f["payload"] != MSG or not f["crc_ok"] or not f["hdr_ok"]]
     if len(frames) != n_frames or bad:
-        raise AssertionError(f"{len(bad)} frames with a wrong payload or "
-                             f"CRC, first {bad[:1]}")
+        raise AssertionError(f"{what}: {len(bad)} frames with a wrong "
+                             f"payload or CRC, first {bad[:1]}")
     off = np.asarray(got) - np.asarray(want[: len(got)])
     if not np.all((off >= 0) & (off <= spec.cp_len)):
-        raise AssertionError("detected starts off their frames' CPs")
+        raise AssertionError(f"{what}: detected starts off their frames' CPs")
 
     sps = N_TIMED * BLOCK / dt
-    log(f"main: {n_frames}/{expect} frames, payload + crc_ok all good; "
+    log(f"{what}: {n_frames}/{expect} frames, payload + crc_ok all good; "
         f"trials {[round(r[0], 4) for r in results]} s; "
         f"{sps / 1e6:.1f} Msamples/s  [{tag}]")
     return {"msamples_per_s": sps / 1e6, "frames": n_frames,
@@ -1220,8 +1242,7 @@ def phase_spectrum(dev, tag: str) -> dict:
 
 def scanner():
     """apps/wideband_scanner.py's power mode at SCAN_CHANS channels."""
-    return chain(channelizer_block(SCAN_CHANS), complex_to_mag_squared(),
-                 stateless(lambda x: x.mean(-2)))
+    return power_scan_block(SCAN_CHANS)
 
 
 def scan_blocks(dev) -> list[torch.Tensor]:
@@ -1514,14 +1535,385 @@ def phase_sync(dev, tag: str) -> dict:
     return {"launches": launches}
 
 
+# -- 10. the flowgraph layer, the examples and the apps -----------------------
+
+EXAMPLES = ROOT / "examples"
+# the headline receiver as a one-node spec, through grc.build
+HEADLINE_SPEC = {
+    "name": "headline_rx",
+    "blocks": [{"id": "rx", "type": "ofdm_rx_stream", "params": {
+        "block_size": BLOCK, "max_frames_per_block": SLOTS, "fft_len": 64,
+        "cp_len": 16, "modulation": "qpsk", "max_payload_bytes": 256}}],
+    "inputs": ["rx"], "outputs": ["rx"],
+}
+# a power meter: |x|^2 -> moving sum of 1024 -> dB, on PSD_BLOCK pushes
+METER_SPEC = {
+    "name": "power_meter",
+    "blocks": [{"id": "mag", "type": "complex_to_mag_squared"},
+               {"id": "avg", "type": "moving_average", "params": {"n": 1024}},
+               {"id": "db", "type": "nlog10"}],
+    "connections": [["mag", "avg"], ["avg", "db"]],
+    "inputs": ["mag"], "outputs": ["db"],
+}
+# examples/README.md's run_flowgraph lines, noise added under the probe's
+# tone: example -> (arguments, the kernels each step launches once, the
+# quantile of the CPU's first dB output that check_power takes as the
+# floor of the later ones; the first is held to its own median).  The
+# probe's lowpass puts over half its bins ~57 dB under its passband; there
+# float32 rounding alone (of the PSD on an exact FIR too) puts the max and
+# min over frames several and hundreds of times their own bar off the
+# float64 answer (probe_readings logs it), so they are held to the
+# passband's noise floor, the 75th percentile of the average spectrum.
+EXAMPLE_RUNS = {
+    "psd_probe": (["--tone", "0.125", "--noise", "0.1"], ("psd",), 0.75),
+    "decimate_and_measure": (["--tone", "0.25"], (), 0.5),
+    "channelizer_waterfall": (["--noise", "1.0", "--block-size", "32768",
+                               "--steps", "5"], ("pfb", "psd"), 0.5),
+}
+LOOPBACK_PDUS = 8        # two pushes of the example's 4 TX slots
+# the loopback app's frames are 1140 samples apart and its RX holds 8 slots
+# a block: at its default block of 16384 both packages recover 40 of 64
+APP_FRAMES, APP_BLOCK = 64, 8192
+# the scan's weakest tone (0.25, channel 257) reads 42 dBFS, the strongest
+# one's neighbours 14 dBFS, the noise near -10
+SCAN_THRESHOLD_DB = 30.0
+
+
+def quiet(fn, *args):
+    """fn(*args) with its standard output captured: (result, output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def example_runs(dev, tmp: pathlib.Path,
+                 counts: collections.Counter) -> None:
+    """Three examples through run_flowgraph.main on the card and on the
+    CPU: the card's launches (one per step of each kernel the graph runs)
+    and its final output against the CPU's."""
+    for name, (args, kernels, q) in EXAMPLE_RUNS.items():
+        spec = str(EXAMPLES / f"{name}.json")
+        steps = int(args[args.index("--steps") + 1]) if "--steps" in args \
+            else 10
+        saved = {}
+        for where, device in (("card", str(dev)), ("cpu", "cpu")):
+            saved[where] = tmp / f"{name}_{where}.npz"
+            reset_launches(*kernels)
+            rc, out = quiet(run_flowgraph.main, [
+                spec, *args, "--device", device, "--save-output",
+                str(saved[where])])
+            if rc != 0:
+                raise AssertionError(f"run_flowgraph {name} on {device}: "
+                                     f"rc {rc}\n{out}")
+            if where == "card":
+                log(f"  run_flowgraph {name}: {out.splitlines()[1]}")
+                launches = read_launches(f"run_flowgraph {name}", *kernels)
+                if set(launches.values()) - {steps}:
+                    raise AssertionError(f"{name}: {launches} launches in "
+                                         f"{steps} steps")
+                counts.update(launches)
+        card, cpu = np.load(saved["card"]), np.load(saved["cpu"])
+        floor = None     # then from the first dB output (the probe's avg)
+        for key in sorted(cpu.files):
+            a, b = torch.as_tensor(card[key]), torch.as_tensor(cpu[key])
+            what = f"{name} {key}, card vs CPU"
+            if a.is_complex():
+                check_close(a, b, 2e-4, what)
+            elif a.dtype == torch.int32:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{what}: {a} != {b}")
+            else:
+                want = power(b)
+                check_power(power(a), want, what, floor)
+                if floor is None:
+                    floor = want.flatten().quantile(q).item()
+        if name == "psd_probe":
+            probe_readings(card, cpu, probe_witness(args, steps), floor)
+
+
+def probe_witness(args: list[str], steps: int):
+    """examples/psd_probe.json in float64 on the host, on the samples that
+    run_flowgraph feeds it at its default block: the lowpass as a direct
+    convolution, hann frames, |DFT|^2 / norm, and the avg, max and min over
+    every frame, in linear power; and the same statistics of the float32
+    PSD (psd_fused_plain on the CPU) of that exact FIR output."""
+    spec = json.loads((EXAMPLES / "psd_probe.json").read_text())
+    taps = grc._resolve_taps(spec["blocks"][0]["params"]["taps"])
+    n = spec["blocks"][1]["params"]["fft_len"]
+    p = argparse.ArgumentParser()
+    add_source_args(p)
+    src = make_source(p.parse_args(args), 1 << 15)
+    x = np.concatenate([next(src) for _ in range(steps)]).astype(np.complex128)
+    y = np.convolve(x, taps.astype(np.float64))[: x.shape[0]]
+    w, norm = kpsd.window_norm(n, "hann")
+    exact = torch.as_tensor(np.abs(np.fft.fft(y.reshape(-1, n) * w)) ** 2
+                            / norm)
+    psd32 = kpsd.psd_fused_plain(torch.as_tensor(y.astype(np.complex64)), n,
+                                 "hann").double()
+    return [[p.mean(0), p.amax(0), p.amin(0)] for p in (exact, psd32)]
+
+
+def probe_readings(card, cpu, witness, floor: float) -> None:
+    """The probe's avg, max and min on the card against the float64
+    witness, each at the floor card vs CPU is held to (the avg at its own
+    median); then, logged, each pair at the output's own median floor
+    (check_power's default), where the stopband bins are held to their own
+    size."""
+    for i, (wit, p32) in enumerate(zip(*witness)):
+        key = f"out_{i}"
+        a = power(torch.as_tensor(card[key]))
+        b = power(torch.as_tensor(cpu[key]))
+        check_power(a, wit, f"psd_probe {key}, card vs float64",
+                    floor if i else None)
+        pairs = (("card vs CPU", a, b), ("card vs float64", a, wit),
+                 ("CPU vs float64", b, wit),
+                 ("float32 PSD of the exact FIR vs float64", p32, wit))
+        log(f"  psd_probe {key} at its median floor "
+            f"{wit.median().item():.3g}: worst bin at " + ", ".join(
+                f"{power_ratio(g, w)[0]:.3g} ({what})" for what, g, w in pairs)
+            + " of its bar")
+
+
+def example_loopback(dev, counts: collections.Counter) -> None:
+    """examples/ofdm_loopback.json (TX -> channel -> RX, driven with PDU
+    batches staged on the device) on the card and on the CPU: every PDU
+    back once with its payload and crc_ok on both; one sc_detect and one
+    gather launch per push on the card."""
+    path = str(EXAMPLES / "ofdm_loopback.json")
+    spec = OfdmConfig(modulation="qpsk", max_payload_bytes=64).spec
+    msgs = [b"chip_smoke loopback pdu %d" % i for i in range(LOOPBACK_PDUS)]
+    want = [(i, m, True) for i, m in enumerate(msgs)]
+    for device in (dev, torch.device("cpu")):
+        feeds = [queue_tx_in(spec, 4, msgs[i:i + 4], i, device=device)[0]
+                 for i in range(0, LOOPBACK_PDUS, 4)]
+        feeds += [empty_tx_in(spec, 4, device)] * 6
+        ex = StreamExecutor(grc.load(path), 4096, device=device)
+        if device == dev:
+            reset_launches("sc_detect", "gather")
+        outs = [ex.push(ti) for ti in feeds]
+        if device == dev:
+            launches = read_launches("loopback example", "sc_detect",
+                                     "gather")
+            if set(launches.values()) != {len(feeds)}:
+                raise AssertionError(f"loopback example: {launches} "
+                                     f"launches in {len(feeds)} pushes")
+            counts.update(launches)
+        if not all(bool(o[1].all()) for o in outs[: LOOPBACK_PDUS // 4]):
+            raise AssertionError(f"loopback example on {device}: a PDU "
+                                 "was refused")
+        frames = collect_frames([o[0] for o in outs], 4096, history_len(spec))
+        got = sorted((f["frame_num"], f["payload"], f["crc_ok"])
+                     for f in frames)
+        if got != want:
+            raise AssertionError(f"loopback example on {device}: {got}")
+    log(f"  loopback example: {LOOPBACK_PDUS} of {LOOPBACK_PDUS} PDUs back "
+        "once with payload and crc_ok, on the card and on the CPU")
+
+
+def check_meter(got_db, want_db, prev, x, what: str) -> None:
+    """Power meter outputs, card vs CPU, as window sums of |x|^2 over
+    [prev | x]: both take each sum as a difference of two float32 roundings
+    of float64 prefixes C (kernels/scan.py), so each is within 2^-23 (|C_hi|
+    + |C_lo| + |S|) of the exact sum S, and the two within twice that, plus
+    2e-6 S for |x|^2 and the dB round trip in float32."""
+    w = METER_SPEC["blocks"][1]["params"]["n"]
+    C = torch.cumsum(torch.cat([prev, x]).cpu().to(torch.complex128).abs()
+                     ** 2, 0)
+    hi = C[w - 1:]
+    lo = torch.cat([C.new_zeros(1), C[: C.shape[0] - w]])
+    S = hi - lo
+    bar = 2.0 ** -22 * (hi + lo + S) + 2e-6 * S
+    ratio = ((power(got_db) - power(want_db)).abs() / bar).max().item()
+    if not ratio <= 1.0:
+        raise AssertionError(f"{what}: {ratio:.3g} of its bar")
+    log(f"  {what}: worst sample at {ratio:.3g} of its bar")
+
+
+def power_meter(dev, counts: collections.Counter, tag: str) -> None:
+    """METER_SPEC on 3 spectrum blocks of 2^22: one scan launch per push;
+    the card's window sums against the CPU's (check_meter)."""
+    blocks = spectrum_blocks(dev)
+    ex = StreamExecutor(grc.build(METER_SPEC), PSD_BLOCK, device=dev)
+    ex.push(blocks[0])                                      # warm-up
+    ex.reset()
+    reset_launches("scan")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [ex.push(b) for b in blocks]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches("power meter", "scan")
+    if launches["scan"] != len(blocks):
+        raise AssertionError(f"power meter: {launches} in {len(blocks)} "
+                             "pushes")
+    counts.update(launches)
+    cpu = StreamExecutor(grc.build(METER_SPEC), PSD_BLOCK, device="cpu")
+    prev = blocks[0].new_zeros(METER_SPEC["blocks"][1]["params"]["n"] - 1)
+    for i, (b, o) in enumerate(zip(blocks, outs)):
+        check_meter(o, cpu.push(b.cpu()), prev, b,
+                    f"power meter push {i}, card vs CPU")
+        prev = b[b.shape[0] - prev.shape[0]:]
+    log(f"  power meter: 3 pushes of 2^22 in {dt:.4f} s, "
+        f"{3 * PSD_BLOCK / dt / 1e6:.1f} Msamples/s  [{tag}]")
+
+
+def scanner_file(dev, tmp: pathlib.Path) -> str:
+    """Phase 7's three blocks written to a complex64 capture file."""
+    path = str(tmp / "scan512.c64")
+    write, close = file_sink(path)
+    for b in scan_blocks(dev):
+        write(b.cpu().numpy())
+    close()
+    return path
+
+
+def apps_on_card(dev, tmp: pathlib.Path, counts: collections.Counter) -> None:
+    """The three apps: ofdm_loopback at APP_FRAMES frames through an
+    impaired channel returns 0; the 512-channel power scan flags exactly
+    the tone channels; the spectrum logger's snapshots on the card equal
+    the CPU's."""
+    reset_launches("sc_detect", "gather")
+    rc, out = quiet(ofdm_loopback.main, [
+        "--frames", str(APP_FRAMES), "--snr", "25", "--cfo", "0.1",
+        "--multipath", "--block-size", str(APP_BLOCK), "--device", str(dev)])
+    n_ok = sum(line.startswith("OK ") for line in out.splitlines())
+    if rc != 0 or n_ok != APP_FRAMES:
+        raise AssertionError(f"ofdm_loopback: rc {rc}, {n_ok} frames OK")
+    counts.update(read_launches("ofdm_loopback app", "sc_detect", "gather"))
+    log(f"  ofdm_loopback app: {n_ok} of {APP_FRAMES} frames OK (25 dB, "
+        "CFO 0.1, multipath)")
+
+    reset_launches("pfb")
+    rc, out = quiet(wideband_scanner.main, [
+        "--file", scanner_file(dev, tmp), "--channels", str(SCAN_CHANS),
+        "--block-size", str(SCAN_BLOCK), "--blocks", "3",
+        "--threshold", str(SCAN_THRESHOLD_DB), "--device", str(dev)])
+    flagged = sorted(int(line.split()[1]) for line in out.splitlines()
+                     if line.startswith("ch ") and line.endswith("*"))
+    if rc != 0 or flagged != sorted(SCAN_TONES):
+        raise AssertionError(f"wideband_scanner: rc {rc}, flagged {flagged}")
+    counts.update(read_launches("wideband_scanner app", "pfb"))
+    log(f"  wideband_scanner app: {SCAN_CHANS} channels, flagged {flagged}")
+
+    logs = {}
+    for where, device in (("card", str(dev)), ("cpu", "cpu")):
+        stem = str(tmp / f"speclog_{where}")
+        if where == "card":
+            reset_launches("psd")
+        rc, _ = quiet(spectrum_logger.main, [
+            "--tone", "0.1", "--noise", "0.1", "--blocks-per-snapshot", "2",
+            "--snapshots", "3", "--out", stem, "--device", device])
+        if rc != 0:
+            raise AssertionError(f"spectrum_logger on {device}: rc {rc}")
+        if where == "card":
+            counts.update(read_launches("spectrum_logger app", "psd"))
+        with open(stem + ".jsonl") as f:
+            logs[where] = (np.load(stem + ".npz"),
+                            [json.loads(line) for line in f])
+    (card, card_lines), (cpu, cpu_lines) = logs["card"], logs["cpu"]
+    for key in ("avg_db", "max_db"):
+        check_power(power(torch.as_tensor(card[key])),
+                    power(torch.as_tensor(cpu[key])),
+                    f"spectrum_logger {key}, card vs CPU")
+    bins = [(a["peak_bin"], a["n_frames"]) for a in card_lines]
+    if bins != [(b["peak_bin"], b["n_frames"]) for b in cpu_lines] \
+            or len(bins) != 3:
+        raise AssertionError(f"spectrum_logger: {card_lines} vs {cpu_lines}")
+    log(f"  spectrum_logger app: 3 snapshots, peak bins and frame counts "
+        f"{bins} as on the CPU")
+
+
+def check_c1_routes(dev) -> None:
+    """The shapes the kernels do not cover compute on the card as the JAX
+    package's XLA chain does, with no launch, and equal the CPU; every
+    covered shape launches its kernel once."""
+    x = noisy_buffers(1, 1 << 20, seed=80, dev=dev)[0]
+    for N in kpsd.COVERED:
+        before = kpsd.psd_fused.launches
+        psd_frames(x, N)
+        if kpsd.psd_fused.launches != before + 1:
+            raise AssertionError(f"psd_frames at N {N} did not launch psd")
+    for xs, N in ((x, 2048), (x, 48), (x.view(4, -1), 2048)):
+        before = kpsd.psd_fused.launches
+        got = psd_frames(xs, N, "blackman_harris")
+        if kpsd.psd_fused.launches != before:
+            raise AssertionError(f"psd_frames at N {N} launched psd")
+        check_power(got.cpu(), psd_frames(xs.cpu(), N, "blackman_harris"),
+                    f"psd_frames N {N} over {tuple(xs.shape)} (torch route), "
+                    "card vs CPU")
+    for xs, N in ((x[: 1 << 19].view(2, -1), WB_CHANS), (x[: 48 << 13], 48)):
+        taps = lowpass_taps(N)
+        poly = torch.as_tensor(polyphase_decompose(taps, N), device=dev)
+        tail = torch.zeros((*xs.shape[:-1], kpfb.tail_len(N, poly.shape[0])),
+                           dtype=torch.complex64, device=dev)
+        before = kpfb.channelize_fused.launches
+        got = channelize(xs, N, taps)
+        half = xs.shape[-1] // 2 // N * N
+        a, tail = channelize_stream(xs[..., :half].contiguous(), tail, N, poly)
+        b, _ = channelize_stream(xs[..., half:].contiguous(), tail, N, poly)
+        if kpfb.channelize_fused.launches != before:
+            raise AssertionError(f"channelize of {tuple(xs.shape)} at {N} "
+                                 "channels launched pfb")
+        want = channelize(xs.cpu(), N, taps)
+        what = f"channelize {tuple(xs.shape)} at {N} channels (torch route)"
+        check_close(got.cpu(), want, 2e-4, f"{what}, card vs CPU")
+        check_close(torch.cat([a, b], dim=-2).cpu(), want[..., : (2 * half)
+                                                          // N, :],
+                    2e-4, f"{what}, two carried steps vs one-shot on the CPU")
+
+
+def ddc_sync_free(dev) -> None:
+    """One push of examples/decimate_and_measure.json (after a warm-up push
+    that builds its constants on the card) under sync debug "error"."""
+    bs = 1 << 15
+    ex = StreamExecutor(grc.load(str(EXAMPLES / "decimate_and_measure.json")),
+                        bs, device=dev)
+    x = tone(bs, bs // 4, bs, dev)
+    ex.push(x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ex.push(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("  DDC graph: one push under sync debug mode 'error': no host sync")
+
+
+def phase_flowgraph(dev, tag: str, main_rate: float) -> dict:
+    counts = collections.Counter()
+    blocks, pos = staged_blocks(HEADLINE.spec, 4, dev, seed=0)
+    ex = StreamExecutor(grc.build(HEADLINE_SPEC), BLOCK, device=dev)
+    if ex.block.name != "headline_rx":
+        raise AssertionError(f"grc.build named the graph {ex.block.name!r}")
+    res = headline_trials(ex, blocks, pos, "flowgraph headline", tag)
+    counts.update(res["launches"])
+    log(f"flowgraph headline through grc.build: {res['msamples_per_s']:.1f} "
+        f"Msamples/s beside phase 4's {main_rate:.1f}  [{tag}]")
+    del ex, blocks
+    torch.cuda.empty_cache()
+    ddc_sync_free(dev)
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        example_runs(dev, tmp, counts)
+        example_loopback(dev, counts)
+        power_meter(dev, counts, tag)
+        apps_on_card(dev, tmp, counts)
+    check_c1_routes(dev)
+    log(f"flowgraph: launches over the phase {dict(counts)}")
+    return {"launches": dict(counts)}
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     kernels = phase_kernels(dev, smi)
-    runs = [phase_main(dev, smi), phase_wideband(dev, smi),
+    main_run = phase_main(dev, smi)
+    runs = [main_run, phase_wideband(dev, smi),
             phase_spectrum(dev, smi), phase_scan(dev, smi),
-            phase_radio(dev, smi), phase_sync(dev, smi)]
+            phase_radio(dev, smi), phase_sync(dev, smi),
+            phase_flowgraph(dev, smi, main_run["msamples_per_s"])]
     report = []
     for name, res in kernels.items():
         source, replaces = SOURCES[name]

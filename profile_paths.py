@@ -5,8 +5,11 @@
 Needs one CUDA card and this checkout; imports no JAX.  Builds each cell
 with chip_smoke.py's shapes and inputs -- the headline stream, the config-4
 wideband receiver, the spectrum probe, logpwrfft and waterfall, the
-512-channel scan, the radio loopback (hard and soft), and the sync metric
-on the CFO-statistics captures -- and measures, per push:
+512-channel scan, the radio loopback (hard and soft), the sync metric on
+the CFO-statistics captures, and through the flowgraph layer the headline
+stream as a one-node grc spec, the DDC example (decimate_and_measure at
+run_flowgraph's block of 2^15) and the power meter (2^22) -- and
+measures, per push:
 
   wall ms      host clock over three windows of 10 pushes, each ended by
                torch.cuda.synchronize(), without the profiler (min-max)
@@ -36,12 +39,14 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
+from tpu_ofdm_torch import grc
 from tpu_ofdm_torch.config import StreamConfig
 from tpu_ofdm_torch.modem.rx_stream import rx_stream_block
 from tpu_ofdm_torch.ops.sync import schmidl_cox
 from tpu_ofdm_torch.stream.executor import StreamExecutor
 
 STEPS = 5                # profiled pushes per cell
+DDC_BLOCK = 1 << 15      # run_flowgraph's default block
 # the port's kernels (csrc/*.cu), as the trace names them
 PORT_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)")
 PORT_KERNELS = {"sc_detect_l32_kernel", "sc_detect_kernel", "gather_kernel",
@@ -99,6 +104,14 @@ def cells(dev):
     frame = frame.samples[: int(frame.n_samples)].numpy()
     yield "sync_cfo_stats", SyncCell(), cs.sync_captures(
         frame, spec.fft_len, spec.cp_len, 10.0, dev, seed=10)[0]
+    yield ("graph_headline", StreamExecutor(
+        grc.build(cs.HEADLINE_SPEC), cs.BLOCK, device=dev), blocks[0])
+    yield ("graph_ddc", StreamExecutor(
+        grc.load(str(cs.EXAMPLES / "decimate_and_measure.json")), DDC_BLOCK,
+        device=dev), cs.tone(DDC_BLOCK, DDC_BLOCK // 4, DDC_BLOCK, dev))
+    yield ("graph_power_meter", StreamExecutor(
+        grc.build(cs.METER_SPEC), cs.PSD_BLOCK, device=dev),
+        cs.spectrum_blocks(dev)[0])
 
 
 def host_windows(ex, x, n=10, windows=3):

@@ -14,6 +14,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,7 +40,10 @@ def test_port_imports_without_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 16, names\n"
+        "assert len(names) >= 28, names\n"
+        "assert {'tpu_ofdm_torch.grc', 'tpu_ofdm_torch.io.sources', "
+        "'tpu_ofdm_torch.apps.run_flowgraph', 'tpu_ofdm_torch.stream.graph'}"
+        " <= set(names), names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -85,8 +89,28 @@ def _queue_tx_in():
     return queue_tx_in(spec, 2, [b"to the card"])[0].valid.device
 
 
-@pytest.mark.parametrize("entry", [_executor, _empty_tx_in, _queue_tx_in],
-                         ids=["StreamExecutor", "empty_tx_in", "queue_tx_in"])
+def _apps():
+    import argparse
+
+    from tpu_ofdm_torch.apps.common import add_device_arg
+    p = argparse.ArgumentParser()
+    add_device_arg(p)
+    return torch.empty(0, device=p.parse_args([]).device).device
+
+
+def _scan_blocks():
+    """A stateless block, whose init names no device, over numpy blocks."""
+    from tpu_ofdm_torch.stream import block as B
+    from tpu_ofdm_torch.stream.executor import scan_blocks
+    b = B.multiply_const(2.0)
+    _, y = scan_blocks(b, b.init("cuda"), np.ones((3, 8), np.complex64))
+    return y.device
+
+
+@pytest.mark.parametrize("entry", [_executor, _empty_tx_in, _queue_tx_in,
+                                   _apps, _scan_blocks],
+                         ids=["StreamExecutor", "empty_tx_in", "queue_tx_in",
+                              "apps", "scan_blocks"])
 def test_entry_points_default_to_the_card(entry):
     """With no device named, an entry point goes to cuda: where torch has
     no card it raises torch's own error, never falls back to the CPU."""
@@ -95,6 +119,26 @@ def test_entry_points_default_to_the_card(entry):
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             entry()
+
+
+def test_io_package_imports_no_feed():
+    """tpu_ofdm_torch.io exports only what is ported: its sources.  The
+    JAX package's io imports its jax device feed eagerly; the port's must
+    import no feed, PDU, PMT or transport module."""
+    code = (
+        "import sys\n"
+        "import tpu_ofdm_torch.io as io\n"
+        "bad = sorted(m for m in sys.modules if m.startswith("
+        "'tpu_ofdm_torch.io.') and m != 'tpu_ofdm_torch.io.sources')\n"
+        "assert not bad, bad\n"
+        "names = sorted(n for n in vars(io) if not n.startswith('_'))\n"
+        "assert names == ['file_sink', 'file_size_samples', 'file_source', "
+        "'head', 'noise_source', 'sig_source', 'sources', 'vector_source'], "
+        "names\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_chip_smoke_imports_no_jax():

@@ -206,24 +206,27 @@ def test_channelize_fused_zero_tail_is_channelize(n_chan):
 @pytest.mark.parametrize("ndim", [1, 2])
 @pytest.mark.parametrize("n_chan", [8, 48, 64, 128, 384, 512, 640])
 def test_channelize_route_for_every_case(device, ndim, n_chan):
-    """CPU: the plain chain; the card: pfb for a 1-D stream at a channel
-    count it covers, a ValueError otherwise (never the plain chain)."""
+    """CPU: the chain in torch ops ("torch"); the card: pfb for a 1-D
+    stream at a channel count it covers, the same torch chain otherwise, as
+    the JAX package takes its XLA chain there (never the kernel's plain
+    version)."""
     route = tch.channelize_route(device, ndim, n_chan)
     if device == "cpu":
-        assert route == "plain"
+        assert route == "torch"
     else:
         assert route == ("kernel" if ndim == 1 and tpfb.supported(n_chan)
-                         else "raise")
+                         else "torch")
 
 
 def test_channelize_refuses_an_uncovered_route():
-    """The decision reaches the public functions: a tensor on a device that
-    is not the CPU (here the meta device) with a batched x raises before
-    any work."""
+    """The decision reaches the public functions: a batched x on a device
+    that is not the CPU (here the meta device) takes the torch chain, not
+    the kernel, and gives the JAX chain's shapes."""
     x = torch.zeros((2, 64 * 8), dtype=torch.complex64, device="meta")
-    with pytest.raises(ValueError):
-        tch.channelize(x, 64, tch.lowpass_taps(64))
-    with pytest.raises(ValueError):
-        tch.channelize_stream(x, torch.zeros(128, dtype=torch.complex64,
-                                             device="meta"), 64,
-                              _poly(64).to("meta"))
+    before = tpfb.channelize_fused.launches
+    assert tch.channelize(x, 64, tch.lowpass_taps(64)).shape == (2, 8, 64)
+    out, tail = tch.channelize_stream(
+        x, torch.zeros((2, 512), dtype=torch.complex64, device="meta"), 64,
+        _poly(64).to("meta"))
+    assert out.shape == (2, 8, 64) and tail.shape == (2, 512)
+    assert tpfb.channelize_fused.launches == before

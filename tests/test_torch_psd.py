@@ -306,10 +306,11 @@ def test_batched_ragged_rows_match_jax_xla(shape, fft_len):
                                      1024, 1152, 2048])
 def test_psd_route_for_every_case(device, fft_len):
     """CPU: the plain chain at any length; the card: the kernel at the
-    covered lengths and a ValueError otherwise (never the plain chain)."""
+    covered lengths, and the XLA chain's torch ops ("torch") at the others
+    (never the kernel's plain version)."""
     route = tpsd.psd_route(device, fft_len)
     if device == "cpu":
         assert route == "plain"
     else:
-        assert route == ("kernel" if fft_len in tkpsd.COVERED else "raise")
+        assert route == ("kernel" if fft_len in tkpsd.COVERED else "torch")
     assert (fft_len in tkpsd.COVERED) == tkpsd.supported(fft_len)

@@ -28,11 +28,19 @@ def supported(fft_len: int) -> bool:
     return fft_len in COVERED
 
 
-def _window(fft_len: int, window: str) -> np.ndarray:
+def window_norm(fft_len: int, window: str) -> tuple[np.ndarray, float]:
+    """The window in float64 and the reference's norm sum(w^2) * fft_len:
+    a PSD frame is |DFT(frame * w)|^2 / norm."""
     from tpu_ofdm_torch.spectrum import window as win
 
     wv = win.get(window, fft_len).astype(np.float64)
-    return wv / np.sqrt(np.sum(wv ** 2) * fft_len)
+    return wv, float(np.sum(wv ** 2) * fft_len)
+
+
+def _window(fft_len: int, window: str) -> np.ndarray:
+    """The window with 1/sqrt(norm) folded in, in float64."""
+    wv, norm = window_norm(fft_len, window)
+    return wv / np.sqrt(norm)
 
 
 def twiddles(fft_len: int) -> np.ndarray:
@@ -46,23 +54,31 @@ def twiddles(fft_len: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def folded_window(fft_len: int, window: str,
-                  device: torch.device) -> torch.Tensor:
-    """(fft_len,) float32 window with 1/sqrt(sum(w^2) * fft_len) folded in,
-    on `device` (cached: the step never copies from the host)."""
-    return torch.as_tensor(_window(fft_len, window).astype(np.float32),
-                           device=device)
-
-
-@functools.lru_cache(maxsize=64)
 def device_consts(fft_len: int, window: str,
                   device: torch.device) -> torch.Tensor:
     """(3 N,) float32 on `device`: the folded window, then `twiddles` as
-    interleaved (re, im), what csrc/psd.cu reads (cached)."""
+    interleaved (re, im), what csrc/psd.cu reads (cached: the step never
+    copies from the host)."""
     tw = twiddles(fft_len)
     c = np.concatenate([_window(fft_len, window),
                         np.stack([tw.real, tw.imag], -1).ravel()])
     return torch.as_tensor(c.astype(np.float32), device=device)
+
+
+def folded_window(fft_len: int, window: str,
+                  device: torch.device) -> torch.Tensor:
+    """(fft_len,) float32 window with 1/sqrt(norm) folded in, on `device`
+    (the head of `device_consts`)."""
+    return device_consts(fft_len, window, device)[:fft_len]
+
+
+@functools.lru_cache(maxsize=64)
+def device_window(fft_len: int, window: str, device: torch.device):
+    """(the window (fft_len,) float32 on `device`, its norm): the operands
+    of the JAX package's XLA chain, which divides by the norm after
+    |.|^2 (cached)."""
+    wv, norm = window_norm(fft_len, window)
+    return torch.as_tensor(wv.astype(np.float32), device=device), norm
 
 
 def psd_fused_plain(x: torch.Tensor, fft_len: int,

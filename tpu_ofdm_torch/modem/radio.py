@@ -42,7 +42,8 @@ def ofdm_radio(spec: OfdmSpec, stream_cfg: StreamConfig,
         rs, rout = rx.apply(rs, rx_samples)
         return (ts, rs), RadioOut(tout, rout)
 
-    return Block(init, apply, latency=rx.latency, stream_input=False)
+    return Block(init, apply, "ofdm_radio", latency=rx.latency,
+                 stream_input=False)
 
 
 def carry_from_jax(state, device):

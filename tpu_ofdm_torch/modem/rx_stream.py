@@ -59,7 +59,7 @@ def rx_stream_block(spec: OfdmSpec, stream_cfg: StreamConfig,
             new_hist = torch.cat([hist[S:], x])
         return (new_hist, step + 1), RxStreamOut(res, step)
 
-    return Block(init, apply, latency=H)
+    return Block(init, apply, "ofdm_rx_stream", latency=H)
 
 
 def carry_from_jax(state, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -116,7 +116,8 @@ def tx_stream_block(spec: OfdmSpec, stream_cfg: StreamConfig,
         cur = (cur + (step * accepted).sum() - S).clamp(min=0).to(torch.int32)
         return (work[S:], cur), TxStreamOut(work[:S].clone(), accepted, cur)
 
-    return Block(init, apply, latency=0, stream_input=False)
+    return Block(init, apply, "ofdm_tx_stream", latency=0,
+                 stream_input=False)
 
 
 def carry_from_jax(state, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -79,7 +79,8 @@ def wideband_rx_block(
             new_hist = torch.cat([rx_hist[:, S:], chans], dim=-1)
         return (new_tail, new_hist, step + 1), WidebandRxOut(res, step)
 
-    return Block(init, apply, latency=H * n_chan + C)
+    return Block(init, apply, f"wideband_rx({n_chan})",
+                 latency=H * n_chan + C)
 
 
 def carry_from_jax(state, device):

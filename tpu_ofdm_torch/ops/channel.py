@@ -133,7 +133,7 @@ def channel_block(seed: int = 0, snr_db: float | None = None,
             y = awgn(gen, y, snr_db, signal_power=signal_power)
         return (gen, ph1, hist), y
 
-    return Block(init, apply)
+    return Block(init, apply, "channel_model")
 
 
 def carry_from_jax(state, device, seed: int = 0):

@@ -8,9 +8,9 @@ fused CUDA kernel (kernels/pfb.py) and carries the last `stream_tail_len`
 RAW samples, the JAX package's carry layout, so a carry saved by either
 package resumes in the other; the one-shot `channelize` runs the same
 kernel with a zero tail.  On the card a 1-D stream at a channel count the
-kernel covers launches it and anything else raises (`channelize_route`);
-on the CPU the plain chain runs, where the JAX package takes its XLA
-chain.
+kernel covers launches it, as in the JAX package; anything else takes the
+JAX package's XLA chain in torch ops (commutator, shifted multiply-adds,
+torch.fft.ifft), which is also what runs on the CPU (`channelize_route`).
 
 The numpy table functions (`lowpass_taps`, `polyphase_decompose`) and the
 host-side synthesis filterbank are the reference's, re-implemented because
@@ -60,30 +60,22 @@ def device_poly(taps: np.ndarray, n_chan: int):
 
 def channelize_route(device_type: str, ndim: int, n_chan: int) -> str:
     """How the channelizer runs a stream x of rank `ndim` on a device of
-    this type: "plain" (the CPU), "kernel" (a 1-D stream at a channel
-    count pfb covers) or "raise"."""
-    if device_type == "cpu":
-        return "plain"
-    return "kernel" if ndim == 1 and pfb.supported(n_chan) else "raise"
-
-
-def _check_route(x: torch.Tensor, n_chan: int, what: str) -> str:
-    route = channelize_route(x.device.type, x.ndim, n_chan)
-    if route == "raise":
-        raise ValueError(f"{what}: x of shape {tuple(x.shape)} at {n_chan} "
-                         f"channels on {x.device}; the pfb kernel takes a "
-                         "1-D stream at n_chan <= 128 dividing 128, or a "
-                         "multiple of 128 up to 512")
-    return route
+    this type, from the shape alone: "kernel" (a 1-D stream on the card at
+    a channel count pfb covers) or "torch" (the chain in torch ops, where
+    the JAX package takes its XLA chain, and always on the CPU)."""
+    if device_type != "cpu" and ndim == 1 and pfb.supported(n_chan):
+        return "kernel"
+    return "torch"
 
 
 def channelize(x: torch.Tensor, n_chan: int, taps: np.ndarray) -> torch.Tensor:
     """One-shot channelizer over a sample buffer (zero history), matching
     the golden model: (..., n_samples) -> (..., n_out, n_chan).  On the
-    card x is 1-D and the pfb kernel runs with a zero tail."""
+    card a 1-D x at a channel count pfb covers runs the kernel with a zero
+    tail."""
     poly = torch.as_tensor(polyphase_decompose(np.asarray(taps), n_chan),
                            device=x.device)
-    if _check_route(x, n_chan, "channelize") == "kernel":
+    if channelize_route(x.device.type, x.ndim, n_chan) == "kernel":
         n = x.shape[-1] // n_chan * n_chan
         return pfb.channelize_fused(x[:n].contiguous(), poly)
     rows = commutator_rows(x, n_chan)
@@ -109,7 +101,7 @@ def channelize_stream(x: torch.Tensor, tail: torch.Tensor, n_chan: int,
     so the caller may reuse x's memory."""
     J = poly.shape[0]
     C = pfb.tail_len(n_chan, J)
-    if _check_route(x, n_chan, "channelize_stream") == "kernel":
+    if channelize_route(x.device.type, x.ndim, n_chan) == "kernel":
         out = pfb.channelize_fused(x, poly, tail=tail)
     else:
         k = (J - 1) * n_chan
@@ -178,4 +170,4 @@ def channelizer_block(n_chan: int, taps: np.ndarray | None = None) -> Block:
         out, new_tail = channelize_stream(x, tail, n_chan, poly(x.device))
         return new_tail, out
 
-    return Block(init, apply)
+    return Block(init, apply, f"pfb_channelizer({n_chan})")

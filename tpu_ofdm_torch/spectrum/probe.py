@@ -62,4 +62,4 @@ def spectrum_probe_block(
         )
         return (s, mx, mn, cnt), out
 
-    return Block(init, apply)
+    return Block(init, apply, f"spectrum_probe({fft_len})")

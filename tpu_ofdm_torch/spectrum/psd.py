@@ -2,28 +2,30 @@
 IIR averaging (counterpart of tpu_ofdm/spectrum/psd.py).
 
 Normalization matches the golden model (tests/golden/golden_ofdm.log_pwr_fft):
-power divided by sum(w^2) * fft_len, folded into the window.  On the card
-every input, 1-D or batched (..., n), runs the psd kernel (kernels/psd.py)
-at the lengths it covers and raises at any other; on the CPU the plain
-chain runs, where the JAX package takes its XLA chain.
+power divided by sum(w^2) * fft_len.  On the card every input, 1-D or
+batched (..., n), runs the psd kernel (kernels/psd.py) at the lengths it
+covers -- every length the JAX package runs in its Pallas kernel, and 16,
+32 and 64 -- and the JAX package's XLA chain in torch ops (window,
+torch.fft.fft, |.|^2 / norm) at any other; on the CPU the kernel's plain
+version runs.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from tpu_ofdm_torch.kernels import psd as kpsd
-from tpu_ofdm_torch.stream.block import Block
+from tpu_ofdm_torch.stream.block import Block, decay_powers, decay_scan
 
 
 def psd_route(device_type: str, fft_len: int) -> str:
-    """How psd_frames computes frames of fft_len on a device of this type:
-    "plain" (the CPU), "kernel" (a length the psd kernel covers) or
-    "raise"."""
+    """How psd_frames computes frames of fft_len on a device of this type,
+    from the length alone: "plain" (the CPU), "kernel" (a length the psd
+    kernel covers) or "torch" (the XLA chain's torch ops, where the JAX
+    package takes that chain too)."""
     if device_type == "cpu":
         return "plain"
-    return "kernel" if kpsd.supported(fft_len) else "raise"
+    return "kernel" if kpsd.supported(fft_len) else "torch"
 
 
 def psd_frames(x: torch.Tensor, fft_len: int,
@@ -31,36 +33,28 @@ def psd_frames(x: torch.Tensor, fft_len: int,
     """(..., n) samples -> (..., n//fft_len, fft_len) linear-power PSD
     frames; each row's ragged tail is dropped."""
     route = psd_route(x.device.type, fft_len)
-    if route == "raise":
-        raise ValueError(f"psd_frames: fft_len {fft_len} on {x.device}; the "
-                         f"psd kernel covers {kpsd.COVERED}")
     if route == "plain":
         return kpsd.psd_fused_plain(x, fft_len, window)
-    return kpsd.psd_fused(x.to(torch.complex64), fft_len, window)
+    if route == "kernel":
+        return kpsd.psd_fused(x.to(torch.complex64), fft_len, window)
+    n = x.shape[-1] // fft_len
+    frames = x[..., : n * fft_len].reshape(*x.shape[:-1], n, fft_len)
+    w, norm = kpsd.device_window(fft_len, window, x.device)
+    return torch.fft.fft(frames * w).abs() ** 2 / norm
 
 
 def iir_average(pwr: torch.Tensor, alpha: float,
                 y0: torch.Tensor | None = None):
     """Single-pole IIR across the frame axis (axis -2):
     y[i] = alpha*p[i] + (1-alpha)*y[i-1], y[-1] = y0 (default p[0], the
-    golden model's warm start).  A log-depth scan (Hillis-Steele over the
-    affine maps y -> r*y + alpha*p[i], r = 1 - alpha): ~log2(n) shifted
-    multiply-adds, as the reference's associative_scan.  Returns
-    (averaged_frames, last_frame)."""
+    golden model's warm start), by decay_scan.  Returns (averaged_frames,
+    last_frame)."""
     if alpha >= 1.0:
         return pwr, pwr[..., -1, :]
     if y0 is None:
         y0 = pwr[..., 0, :]
-    r = np.float32(1.0 - alpha)
-    n = pwr.shape[-2]
-    b = alpha * pwr
-    d, rd = 1, r                                  # rd = r ** d, float32
-    while d < n:
-        # b[i] covers frames (i - 2d, i]: add the span ending at i - d
-        b = torch.cat([b[..., :d, :],
-                       b[..., d:, :] + float(rd) * b[..., :-d, :]], dim=-2)
-        d, rd = 2 * d, rd * rd
-    mm = torch.full((n,), float(r), device=pwr.device).cumprod(0)
+    b = decay_scan(alpha * pwr, 1.0 - alpha, -2)
+    mm = decay_powers(1.0 - alpha, pwr.shape[-2], pwr.device)
     y = mm[:, None] * y0[..., None, :] + b
     return y, y[..., -1, :]
 
@@ -102,4 +96,4 @@ def log_pwr_fft_block(
         out = 10.0 * torch.log10(avg.clamp(min=floor))
         return (torch.ones_like(warm), y_new), out
 
-    return Block(init, apply)
+    return Block(init, apply, f"logpwrfft({fft_len})")

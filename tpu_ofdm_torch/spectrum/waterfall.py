@@ -38,7 +38,7 @@ def waterfall_block(
         ring = torch.cat([ring[k:], rows[-k:]], dim=0)
         return ring, ring
 
-    return Block(init, apply)
+    return Block(init, apply, f"waterfall({fft_len}x{depth})")
 
 
 def render_ascii(
