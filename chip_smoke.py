@@ -72,7 +72,28 @@ in order -- any failure raises and the script exits non-zero:
               batched x or at 48 channels compute with no launch and equal
               the CPU, every covered N launches psd; (f) one push of (a)
               and one of the DDC graph under sync-debug "error"
- 11. report   one JSON line of per-kernel results, the nvidia-smi line, and
+ 11. ingest   the headline stream read from a capture file: 6 blocks of
+              2^25 (phase 4's layout, frames 2000 samples later, one more
+              frame across the seam before block 3) written as i16c;
+              FileStreamer (the native runtime, a 2-block ring) ->
+              DeviceFeed (2 pinned slots, a copy stream, depth 3) ->
+              StreamExecutor under a Watchdog: (b) every frame back with
+              payload, crc_ok and start, one sc_detect and one gather a
+              push, push 1 under sync-debug "error", ingest rate beside
+              phase 4's, each block's host ms of read, convert, feed wait
+              and push; a 1-block f32c file through the
+              feed equals the staged block bit for bit; (c) save_state
+              after 3 blocks, load_state into a fresh executor, resume
+              with the first 3 blocks skipped on the host: the same frames,
+              the one across the cut once; (d) inject_faults drops block
+              4: exactly the frames that touch it are lost; (e) a replay
+              gives the same frames and bit-identical output leaves; (f)
+              ofdm_chat send -> listen and spectrum_analyzer local ->
+              remote on the card over loopback UDP (messages arrive, the
+              tone's bin peaks, launches counted), metrics.trace naming
+              the port's sc_detect and gather kernels, its host-to-card
+              copies of the feed's blocks giving the H2D ms and GB/s
+ 12. report   one JSON line of per-kernel results, the nvidia-smi line, and
               the final {"ok": true, ...} line
 """
 
@@ -82,12 +103,15 @@ import argparse
 import collections
 import contextlib
 import io
+import itertools
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -99,13 +123,14 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "tests" / "golden"))
 import golden_ofdm as G  # noqa: E402
-from tpu_ofdm_torch import grc
-from tpu_ofdm_torch.apps import (ofdm_loopback, run_flowgraph,
-                                 spectrum_logger, wideband_scanner)
+from tpu_ofdm_torch import grc, runtime
+from tpu_ofdm_torch.apps import (ofdm_chat, ofdm_loopback, run_flowgraph,
+                                 spectrum_analyzer, spectrum_logger,
+                                 wideband_scanner)
 from tpu_ofdm_torch.apps.common import add_source_args, make_source
 from tpu_ofdm_torch.apps.wideband_scanner import power_scan_block
 from tpu_ofdm_torch.config import OfdmConfig, StreamConfig
-from tpu_ofdm_torch.io import file_sink
+from tpu_ofdm_torch.io import DeviceFeed, SpectrumSubscriber, file_sink
 from tpu_ofdm_torch.kernels import build
 from tpu_ofdm_torch.kernels import gather as kgather
 from tpu_ofdm_torch.kernels import pfb as kpfb
@@ -133,7 +158,12 @@ from tpu_ofdm_torch.spectrum.channelizer import (channelize,
                                                  lowpass_taps,
                                                  polyphase_decompose,
                                                  synthesize_bursts)
+from tpu_ofdm_torch.runtime import FileStreamer
+from tpu_ofdm_torch.stream.checkpoint import load_state, resume_step, save_state
 from tpu_ofdm_torch.stream.executor import StreamExecutor
+from tpu_ofdm_torch.utils import metrics
+from tpu_ofdm_torch.utils.faults import Watchdog, inject_faults
+from tpu_ofdm_torch.utils.metrics import LinkMetrics, PerfCounters
 
 FRAMES_PER_BLOCK = 448
 BLOCK = 1 << 25
@@ -1904,6 +1934,489 @@ def phase_flowgraph(dev, tag: str, main_rate: float) -> dict:
     return {"launches": dict(counts)}
 
 
+# -- 11. ingest and recovery ----------------------------------------------------
+
+INGEST_BLOCKS = 6
+INGEST_SHIFT = 2000      # every block's frames sit this far past staged_blocks'
+INGEST_SEAM = 3          # one more frame starts INGEST_LEAD before this block
+INGEST_LEAD = 1000
+INGEST_CUT = 3           # checkpoint after blocks 0 .. INGEST_CUT - 1
+INGEST_DROP = 4          # the block inject_faults drops
+INGEST_DEPTH = 3         # DeviceFeed depth
+INGEST_TRACED = 3        # pushes under metrics.trace
+WATCHDOG_S = 10.0
+CHAT_MSGS = ["chip_smoke chat on the card", "second message"]
+ANALYZER_BLOCK = 1 << 17
+ANALYZER_PUSHES = 8
+ANALYZER_TONE_BIN = 256  # --tone 0.25 of --fft-len 1024
+
+
+def ingest_block(spec, i: int, dev) -> torch.Tensor:
+    """Block i of the capture: staged_blocks' layout (FRAMES_PER_BLOCK
+    golden frames over 0.02-rms noise) with every frame INGEST_SHIFT later,
+    and the two parts of one more frame (frame_num 1) across the seam
+    before block INGEST_SEAM."""
+    frame = golden_frame(spec)
+    seam = golden_frame(spec, frame_num=1)
+    gap = (BLOCK - 2 * len(frame)) // FRAMES_PER_BLOCK
+    b = noisy_buffers(1, BLOCK, seed=110 + i, dev=dev)
+    add_frames(b, frame, [INGEST_SHIFT + 100 + j * gap
+                          for j in range(FRAMES_PER_BLOCK)])
+    if i == INGEST_SEAM - 1:
+        b[0, BLOCK - INGEST_LEAD:] += torch.as_tensor(seam[:INGEST_LEAD],
+                                                      device=dev)
+    if i == INGEST_SEAM:
+        b[0, : len(seam) - INGEST_LEAD] += torch.as_tensor(
+            seam[INGEST_LEAD:], device=dev)
+    return b[0]
+
+
+def ingest_expected(spec) -> list[tuple[int, int]]:
+    """(absolute start, frame_num) of every frame of the capture, sorted."""
+    frame = golden_frame(spec)
+    gap = (BLOCK - 2 * len(frame)) // FRAMES_PER_BLOCK
+    want = [(i * BLOCK + INGEST_SHIFT + 100 + j * gap, 0)
+            for i in range(INGEST_BLOCKS) for j in range(FRAMES_PER_BLOCK)]
+    return sorted(want + [(INGEST_SEAM * BLOCK - INGEST_LEAD, 1)])
+
+
+def host_planes(x: torch.Tensor) -> np.ndarray:
+    """A complex64 block as (2, n) float32 (re, im) planes on the host."""
+    return torch.view_as_real(x).T.contiguous().cpu().numpy()
+
+
+def write_capture(spec, dev, tmp: pathlib.Path) -> dict:
+    """The capture as an i16c file (sc16, scaled so that the peak is full
+    scale) and block 0 alone as an f32c file."""
+    peak = max(torch.view_as_real(ingest_block(spec, i, dev)).abs().max()
+               .item() for i in range(INGEST_BLOCKS))
+    paths = {"i16c": str(tmp / "capture.i16c"), "f32c": str(tmp / "block0.f32c"),
+             "peak": peak}
+    with open(paths["i16c"], "wb") as f:
+        for i in range(INGEST_BLOCKS):
+            real, imag = host_planes(ingest_block(spec, i, dev))
+            f.write(runtime.from_planar(real, imag, "i16c",
+                                        scale=32767 / peak))
+    with open(paths["f32c"], "wb") as f:
+        real, imag = host_planes(ingest_block(spec, 0, dev))
+        f.write(runtime.from_planar(real, imag, "f32c"))
+    return paths
+
+
+def capture_streamer(paths: dict, fmt: str = "i16c") -> FileStreamer:
+    """The capture's FileStreamer, its ring two blocks long."""
+    item = {"i16c": 4, "f32c": 8}[fmt]
+    return FileStreamer(paths[fmt], fmt, block_size=BLOCK,
+                        ring_bytes=2 * BLOCK * item,
+                        scale=paths["peak"] / 32767 if fmt == "i16c" else None)
+
+
+def ingest_executor(dev) -> StreamExecutor:
+    sc = StreamConfig(block_size=BLOCK, max_frames_per_block=SLOTS)
+    return StreamExecutor(rx_stream_block(HEADLINE.spec, sc), BLOCK,
+                          device=dev)
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Any synchronizing CUDA call inside raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+class TimedReads:
+    """A FileStreamer as DeviceFeed's planar source, keeping each block's
+    (read, convert) seconds: the wait for the reader thread's bytes, then
+    the conversion into the feed's pinned planes."""
+
+    def __init__(self, fs: FileStreamer):
+        self.fs, self.block, self.times = fs, fs.block, []
+
+    def read_into(self, re, im) -> int:
+        n = self.fs.read_into(re, im)
+        if n:
+            self.times.append(self.fs.last_times)
+        return n
+
+
+@contextlib.contextmanager
+def timed(pc: PerfCounters, times: dict, name: str):
+    """pc's stage `name`, its seconds also appended to times[name]."""
+    t0 = time.perf_counter()
+    with pc.stage(name, items=BLOCK):
+        yield
+    times[name].append(time.perf_counter() - t0)
+
+
+def ingest_run(source, ex, dev, pc: PerfCounters, sync_push: int = -1):
+    """Every block that a DeviceFeed stages from `source`, pushed through
+    `ex` (push number `sync_push` under sync debug "error"), then one zero
+    block to drain the receiver's history.  Returns (outputs, seconds from
+    the first block's fetch to the card's end of the last, the feed, each
+    block's host seconds waiting for the feed and enqueueing the push)."""
+    feed = DeviceFeed(source, depth=INGEST_DEPTH, device=dev)
+    outs, times = [], {"feed": [], "push": []}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = iter(feed)
+    while True:
+        with timed(pc, times, "feed"):
+            x = next(blocks, None)
+        if x is None:
+            break
+        with timed(pc, times, "push"):
+            if len(outs) == sync_push:
+                with no_host_sync():
+                    outs.append(ex.push(x))
+            else:
+                outs.append(ex.push(x))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    outs.append(ex.push(torch.zeros(BLOCK, dtype=torch.complex64,
+                                    device=dev)))
+    return outs, dt, feed, times
+
+
+def block_ms(seconds: list[float]) -> dict:
+    """Per-block ms: the first block's, and the mean, min and max of the
+    blocks after it (the first pays the reader's start and the pinned
+    slots' allocation)."""
+    rest = [1e3 * t for t in seconds[1:]]
+    return {"first": 1e3 * seconds[0], "mean": sum(rest) / len(rest),
+            "min": min(rest), "max": max(rest)}
+
+
+def frame_key(f: dict) -> tuple:
+    return (f["abs_start"], f["frame_num"], f["payload"], f["crc_ok"])
+
+
+def check_ingest_frames(spec, frames, want, what: str) -> None:
+    """Exactly the frames `want` [(start, frame_num)], each once, with the
+    payload MSG, crc_ok, hdr_ok and a detected start inside its CP."""
+    got = sorted(frames, key=lambda f: f["abs_start"])
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} frames, want {len(want)}")
+    bad = [f for f in got
+           if f["payload"] != MSG or not f["crc_ok"] or not f["hdr_ok"]]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} frames with a wrong "
+                             f"payload or CRC, first {bad[:1]}")
+    if [f["frame_num"] for f in got] != [n for _, n in want]:
+        raise AssertionError(f"{what}: frame numbers differ")
+    off = (np.asarray([f["abs_start"] for f in got])
+           - np.asarray([p for p, _ in want]))
+    if not np.all((off >= 0) & (off <= spec.cp_len)):
+        raise AssertionError(f"{what}: detected starts off their frames' CPs")
+
+
+def named_leaves(tree, prefix: str = "out"):
+    """(path, tensor) of each leaf of a NamedTuple / tuple tree."""
+    if hasattr(tree, "_fields"):
+        for name in tree._fields:
+            yield from named_leaves(getattr(tree, name), f"{prefix}.{name}")
+    elif isinstance(tree, (tuple, list)):
+        for i, t in enumerate(tree):
+            yield from named_leaves(t, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def raw_bits(t: torch.Tensor) -> torch.Tensor:
+    t = t.reshape(-1)
+    if t.is_complex():
+        t = torch.view_as_real(t).reshape(-1)
+    return t.view(torch.uint8)
+
+
+def replay_diffs(outs_a, outs_b) -> list[str]:
+    """The output leaves of two runs that differ in any bit."""
+    diffs = []
+    for step, (a, b) in enumerate(zip(outs_a, outs_b, strict=True)):
+        for (name, u), (_, v) in zip(named_leaves(a), named_leaves(b),
+                                     strict=True):
+            if u.dtype != v.dtype or u.shape != v.shape \
+                    or not torch.equal(raw_bits(u), raw_bits(v)):
+                diffs.append(f"step {step} {name}")
+    return diffs
+
+
+def in_thread(fn, args) -> tuple[threading.Thread, dict]:
+    box = {}
+    t = threading.Thread(target=lambda: box.update(rc=fn(args)), daemon=True)
+    t.start()
+    return t, box
+
+
+def bound_port(err: io.StringIO, t: threading.Thread, what: str,
+               timeout: float = 60.0) -> int:
+    """The UDP port that an app started with --port 0 in thread `t` names
+    on stderr (captured in `err`) once its socket is bound."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and t.is_alive():
+        m = re.search(r"on udp port (\d+)", err.getvalue())
+        if m:
+            return int(m.group(1))
+        time.sleep(0.01)
+    raise AssertionError(f"{what}: no bound port announced; stderr "
+                         f"{err.getvalue()!r}")
+
+
+def chat_on_card(dev, counts: collections.Counter) -> None:
+    """ofdm_chat listen (a thread) and send, both on the card, over
+    loopback UDP: both messages arrive; listen launches sc_detect and
+    gather."""
+    reset_launches("sc_detect", "gather")
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        t, box = in_thread(ofdm_chat.main, [
+            "listen", "--port", "0", "--messages", "2", "--timeout",
+            "30", "--block-size", "8192", "--device", str(dev)])
+        port = bound_port(err, t, "ofdm_chat listen")
+        args = ["send", "--remote-host", "127.0.0.1", "--port", str(port),
+                "--device", str(dev)]
+        for m in CHAT_MSGS:
+            args += ["-m", m]
+        rc = ofdm_chat.main(args)
+        t.join(60)
+    lines = [s for s in out.getvalue().splitlines() if s.startswith("[")]
+    if rc != 0 or t.is_alive() or box.get("rc") != 0 \
+            or lines != [f"[{i}] {m}" for i, m in enumerate(CHAT_MSGS)]:
+        raise AssertionError(f"ofdm_chat: send rc {rc}, listen {box}, "
+                             f"printed {lines}")
+    counts.update(read_launches("ofdm_chat listen", "sc_detect", "gather"))
+    log(f"  ofdm_chat on the card: {lines}")
+
+
+def analyzer_on_card(dev, counts: collections.Counter) -> None:
+    """spectrum_analyzer local on the card (tone 0.25, fft 1024, the
+    default blackman_harris): its spectra peak at the tone's bin, one psd
+    launch a push; then the same worker with the remote app receiving 3
+    frames."""
+    local = ["local", "--tone", "0.25", "--fft-len", "1024", "--block-size",
+             str(ANALYZER_BLOCK), "--blocks", str(ANALYZER_PUSHES),
+             "--frame-rate", "100000", "--device", str(dev)]
+    sub = SpectrumSubscriber(bind_port=0)
+    reset_launches("psd")
+    try:
+        rc, _ = quiet(spectrum_analyzer.main, local + ["--port", str(sub.port)])
+        frames = [sub.receive(timeout=5.0) for _ in range(3)]
+    finally:
+        sub.close()
+    launches = read_launches("spectrum_analyzer local", "psd")
+    peaks = [int(np.argmax(fr.avg_db)) for fr in frames if fr is not None]
+    if rc != 0 or peaks != [ANALYZER_TONE_BIN] * 3 \
+            or launches["psd"] != ANALYZER_PUSHES:
+        raise AssertionError(f"spectrum_analyzer local: rc {rc}, peak bins "
+                             f"{peaks}, {launches} in {ANALYZER_PUSHES} "
+                             "pushes")
+    counts.update(launches)
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        t, box = in_thread(spectrum_analyzer.main, [
+            "remote", "--port", "0", "--frames", "3", "--timeout", "20",
+            "--width", "64"])
+        port = bound_port(err, t, "spectrum_analyzer remote")
+        reset_launches("psd")
+        rc = spectrum_analyzer.main(local + ["--port", str(port)])
+        t.join(30)
+    launches = read_launches("spectrum_analyzer local -> remote", "psd")
+    lines = [s for s in out.getvalue().splitlines() if "MHz" in s]
+    if rc != 0 or t.is_alive() or box.get("rc") != 0 or len(lines) != 3 \
+            or launches["psd"] != ANALYZER_PUSHES:
+        raise AssertionError(f"spectrum_analyzer remote: local rc {rc}, "
+                             f"remote {box}, printed {lines}, {launches} in "
+                             f"{ANALYZER_PUSHES} pushes")
+    counts.update(launches)
+    log(f"  spectrum_analyzer local -> remote on the card: peak bins {peaks},"
+        f" one psd launch a push; remote printed {lines[0]!r}")
+
+
+PORT_SYMBOL = {"sc_detect": re.compile(r"\(anonymous namespace\)::sc_detect"),
+               "gather": re.compile(r"\(anonymous namespace\)::gather_kernel")}
+
+
+def traced_ingest(paths: dict, dev, tmp: pathlib.Path) -> dict:
+    """metrics.trace around a fresh feed and INGEST_TRACED ingest pushes:
+    the Chrome trace names the port's sc_detect and gather kernels, and its
+    host-to-card copies of the feed's pinned planes give the H2D ms and
+    GB/s a block (none on the CPU)."""
+    ex = ingest_executor(dev)
+    ex.push(torch.zeros(BLOCK, dtype=torch.complex64, device=dev))  # warm-up
+    with capture_streamer(paths) as fs, metrics.trace(str(tmp / "trace")):
+        feed = DeviceFeed(fs.packed(), depth=INGEST_DEPTH, device=dev)
+        blocks = iter(feed)
+        for _ in range(INGEST_TRACED):
+            ex.push(next(blocks))
+        feed.close()
+    events = json.loads((tmp / "trace" / metrics.TRACE_FILE).read_text())
+    events = events["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    found = {k: sorted(n for n in names if rx.search(n))
+             for k, rx in PORT_SYMBOL.items()}
+    if not all(found.values()):
+        raise AssertionError(f"metrics.trace: port kernels not in the trace:"
+                             f" {found}")
+    log(f"  metrics.trace over {INGEST_TRACED} ingest pushes names "
+        f"{[n for v in found.values() for n in v]}")
+    nbytes = 2 * BLOCK * 4
+    us = [e["dur"] for e in events if "HtoD" in e.get("name", "")
+          and e.get("args", {}).get("bytes") == nbytes]
+    if not us:
+        if dev.type == "cuda":
+            raise AssertionError("metrics.trace: no host-to-card copy of a "
+                                 "feed block in the trace")
+        return {"copies": 0}
+    h2d = {"copies": len(us), "ms": sum(us) / len(us) / 1e3,
+           "min_ms": min(us) / 1e3, "max_ms": max(us) / 1e3,
+           "gb_per_s": nbytes * len(us) / sum(us) / 1e3}
+    log(f"  H2D (trace): {h2d['copies']} copies of {nbytes >> 20} MiB, "
+        f"{h2d['ms']:.4f} ms a block ({h2d['min_ms']:.4f}-"
+        f"{h2d['max_ms']:.4f}), {h2d['gb_per_s']:.2f} GB/s")
+    return h2d
+
+
+def phase_ingest(dev, tag: str, main_rate: float) -> dict:
+    """The headline stream read from a capture file: FileStreamer (native)
+    -> DeviceFeed (pinned, copy stream) -> StreamExecutor; checkpoint and
+    resume across a frame on the cut; a dropped block; a replay; the chat
+    and analyzer apps on the card; a trace."""
+    if not runtime.NATIVE:
+        raise AssertionError("ingest: the native runtime did not load")
+    spec = HEADLINE.spec
+    H = history_len(spec)
+    want = ingest_expected(spec)
+    counts = collections.Counter()
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        t0 = time.perf_counter()
+        paths = write_capture(spec, dev, tmp)
+        log(f"ingest: wrote {INGEST_BLOCKS} blocks of 2^{BLOCK.bit_length() - 1}"
+            f" i16c samples "
+            f"({INGEST_BLOCKS * BLOCK * 4 >> 20} MiB) and one f32c block in "
+            f"{time.perf_counter() - t0:.2f} s; native runtime")
+
+        # (b) uninterrupted, watched, timed
+        pc, link = PerfCounters(), LinkMetrics()
+        ex = ingest_executor(dev)
+        reset_launches("sc_detect", "gather")
+        with capture_streamer(paths) as fs, \
+                Watchdog(lambda: ex.samples_in, WATCHDOG_S) as wd:
+            reads = TimedReads(fs)
+            outs_b, dt, feed, times = ingest_run(reads, ex, dev, pc,
+                                                 sync_push=1)
+        launches = read_launches("ingest", "sc_detect", "gather")
+        pushes = INGEST_BLOCKS + 1
+        if set(launches.values()) != {pushes} or wd.stall_count:
+            raise AssertionError(f"ingest: {launches} launches in {pushes} "
+                                 f"pushes, {wd.stall_count} stalls")
+        counts.update(launches)
+        frames_b = collect_frames(outs_b, block_size=BLOCK, hist=H)
+        check_ingest_frames(spec, frames_b, want, "ingest")
+        link.update_from_frames(frames_b)
+        link.add_samples(INGEST_BLOCKS * BLOCK)
+        report = {**feed.counters.report(), **pc.report()}
+        stages = {"read": block_ms([r for r, _ in reads.times]),
+                  "convert": block_ms([c for _, c in reads.times]),
+                  "feed": block_ms(times["feed"][:INGEST_BLOCKS]),
+                  "push": block_ms(times["push"])}
+        sps = INGEST_BLOCKS * BLOCK / dt
+        log(f"ingest: {len(frames_b)}/{len(want)} frames (the one across "
+            f"the seam before block {INGEST_SEAM} included), payload + "
+            f"crc_ok + start all good; one sc_detect and one gather a push; "
+            f"push 1 under sync debug 'error'; watchdog stalls 0")
+        log(f"ingest: {sps / 1e6:.1f} Msamples/s from the i16c file beside "
+            f"phase 4's pre-staged {main_rate:.1f}  [{tag}]")
+        log("ingest: host ms a block (block 0; mean, min-max of blocks 1-"
+            f"{INGEST_BLOCKS - 1}): " + "; ".join(
+                f"{k} {v['first']:.3f}; {v['mean']:.3f}, {v['min']:.3f}-"
+                f"{v['max']:.3f}" for k, v in stages.items())
+            + " (read: the wait for the reader thread's bytes; convert: "
+            "i16c into the pinned planes; feed: the consumer's wait for a "
+            "staged block; push: its enqueue)")
+        log(f"ingest: stages (EWMA) {json.dumps(report)}")
+        log(f"ingest: link {json.dumps(link.summary())}")
+        del feed, ex
+
+        # the f32c block through the feed, against the block staged directly
+        with capture_streamer(paths, "f32c") as fs:
+            (got,) = list(DeviceFeed(fs.packed(), device=dev))
+        if not torch.equal(raw_bits(got), raw_bits(ingest_block(spec, 0, dev))):
+            raise AssertionError("ingest: the f32c block differs from the "
+                                 "block staged directly")
+        log("ingest: the f32c block through the feed equals the staged "
+            "block bit for bit")
+        del got
+
+        # (c) checkpoint after INGEST_CUT blocks, resume in a fresh executor
+        ck = str(tmp / "ckpt")
+        with capture_streamer(paths) as fs:
+            ex = ingest_executor(dev)
+            feed = DeviceFeed(fs.packed(), depth=INGEST_DEPTH, device=dev)
+            outs_a = [ex.push(x) for _, x in zip(range(INGEST_CUT), feed)]
+            save_state(ck, ex, meta={"capture": "capture.i16c"})
+            feed.close()
+            del ex, feed
+        ex = ingest_executor(dev)
+        meta = load_state(ck, ex)
+        if resume_step(meta) != INGEST_CUT:
+            raise AssertionError(f"resume_step {resume_step(meta)}")
+        with capture_streamer(paths) as fs:
+            outs_c, _, feed, _ = ingest_run(
+                itertools.islice(fs, INGEST_CUT, None), ex, dev, PerfCounters())
+        resumed = collect_frames(outs_a + outs_c, block_size=BLOCK, hist=H)
+        if sorted(map(frame_key, resumed)) != sorted(map(frame_key, frames_b)):
+            raise AssertionError("resume: the frames differ from the "
+                                 "uninterrupted run's")
+        seam = [f for f in resumed if f["frame_num"] == 1]
+        log(f"resume: checkpoint after block {INGEST_CUT - 1}, resumed at "
+            f"step {resume_step(meta)}: {len(resumed)} frames equal the "
+            f"uninterrupted run's, the frame across the cut once "
+            f"(abs_start {seam[0]['abs_start']})")
+        del ex, feed, outs_a, outs_c
+
+        # (d) a dropped block loses only the frames that touch it
+        flen = len(golden_frame(spec))
+        lo, hi = INGEST_DROP * BLOCK, (INGEST_DROP + 1) * BLOCK
+        want_d = [(p - BLOCK if p >= hi else p, n) for p, n in want
+                  if not (p < hi and p + flen > lo)]
+        ex = ingest_executor(dev)
+        with capture_streamer(paths) as fs:
+            outs_d, _, feed, _ = ingest_run(inject_faults(fs, drop=[INGEST_DROP]),
+                                         ex, dev, PerfCounters())
+        check_ingest_frames(spec, collect_frames(outs_d, BLOCK, H), want_d,
+                            "dropped block")
+        log(f"faults: block {INGEST_DROP} dropped: {len(want) - len(want_d)} "
+            f"frames lost, the other {len(want_d)} back")
+        del ex, feed, outs_d
+
+        # (e) replay: the same frames and the same bits
+        ex = ingest_executor(dev)
+        with capture_streamer(paths) as fs:
+            outs_e, _, feed, _ = ingest_run(fs.packed(), ex, dev, PerfCounters())
+        frames_e = collect_frames(outs_e, BLOCK, H)
+        diffs = replay_diffs(outs_b, outs_e)
+        if sorted(map(frame_key, frames_e)) != sorted(map(frame_key, frames_b)) \
+                or diffs:
+            raise AssertionError(f"replay: {len(diffs)} leaves differ, "
+                                 f"first {diffs[:5]}")
+        n_leaves = len(list(named_leaves(outs_e[0])))
+        log(f"replay: same frames; all {n_leaves} output leaves of all "
+            f"{len(outs_e)} steps bit-identical")
+        del ex, feed, outs_b, outs_e
+
+        # (f) the apps on the card, and a trace
+        chat_on_card(dev, counts)
+        analyzer_on_card(dev, counts)
+        h2d = traced_ingest(paths, dev, tmp)
+    log(f"ingest: launches over the phase {dict(counts)}")
+    return {"launches": dict(counts), "msamples_per_s": sps / 1e6,
+            "stages_ms": stages, "h2d": h2d}
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1913,7 +2426,8 @@ def main():
     runs = [main_run, phase_wideband(dev, smi),
             phase_spectrum(dev, smi), phase_scan(dev, smi),
             phase_radio(dev, smi), phase_sync(dev, smi),
-            phase_flowgraph(dev, smi, main_run["msamples_per_s"])]
+            phase_flowgraph(dev, smi, main_run["msamples_per_s"]),
+            phase_ingest(dev, smi, main_run["msamples_per_s"])]
     report = []
     for name, res in kernels.items():
         source, replaces = SOURCES[name]

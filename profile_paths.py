@@ -8,8 +8,10 @@ wideband receiver, the spectrum probe, logpwrfft and waterfall, the
 512-channel scan, the radio loopback (hard and soft), the sync metric on
 the CFO-statistics captures, and through the flowgraph layer the headline
 stream as a one-node grc spec, the DDC example (decimate_and_measure at
-run_flowgraph's block of 2^15) and the power meter (2^22) -- and
-measures, per push:
+run_flowgraph's block of 2^15) and the power meter (2^22), and the
+headline stream read from chip_smoke.py phase 11's i16c capture file
+through FileStreamer and DeviceFeed (read again from its start at its end)
+-- and measures, per push:
 
   wall ms      host clock over three windows of 10 pushes, each ended by
                torch.cuda.synchronize(), without the profiler (min-max)
@@ -21,6 +23,13 @@ measures, per push:
   top          device ms per push by operation name, largest first
   port         device ms per push of each of the port's own CUDA kernels
                (csrc/*.cu) that ran, by function name
+  h2d ms       device ms per push of host-to-card copies in that trace
+               (ingest: the feed's copy of each block's pinned planes)
+  read ms      (ingest) host ms per block waiting for the reader thread's
+               bytes, mean, min and max over the blocks read, the first
+               of each pass over the file left out (FileStreamer.last_times)
+  convert ms   (ingest) host ms per block converting i16c into the feed's
+               pinned planes, the same blocks
 
 Prints one line per cell and writes all of it as JSON to --out.
 """
@@ -32,6 +41,7 @@ import collections
 import json
 import pathlib
 import re
+import tempfile
 import time
 
 import torch
@@ -41,6 +51,7 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 from tpu_ofdm_torch import grc
 from tpu_ofdm_torch.config import StreamConfig
+from tpu_ofdm_torch.io import DeviceFeed
 from tpu_ofdm_torch.modem.rx_stream import rx_stream_block
 from tpu_ofdm_torch.ops.sync import schmidl_cox
 from tpu_ofdm_torch.stream.executor import StreamExecutor
@@ -78,6 +89,53 @@ class SyncCell:
         return schmidl_cox(cs.HEADLINE.spec, r)
 
 
+class LoopingCapture:
+    """chip_smoke.py phase 11's capture as DeviceFeed's planar reader, read
+    again from its start at its end; keeps each block's (read, convert)
+    seconds but the first of each pass, which pays the reader's start."""
+
+    def __init__(self, paths):
+        self.paths = paths
+        self.fs = cs.capture_streamer(paths)
+        self.block = self.fs.block
+        self.times = []
+        self._first = True
+
+    def read_into(self, re, im):
+        n = self.fs.read_into(re, im)
+        if n == 0:
+            self.fs.close()
+            self.fs = cs.capture_streamer(self.paths)
+            self._first = True
+            n = self.fs.read_into(re, im)
+        if not self._first:
+            self.times.append(self.fs.last_times)
+        self._first = False
+        return n
+
+    def close(self):
+        self.fs.close()
+
+
+class IngestCell:
+    """One push of the ingest cell: the next block that the DeviceFeed
+    staged from the capture, through the headline receiver (chip_smoke.py
+    phase 11's path); the block given to push() is ignored."""
+
+    def __init__(self, dev, paths):
+        self.ex = cs.ingest_executor(dev)
+        self.source = LoopingCapture(paths)
+        self.feed = DeviceFeed(self.source, depth=cs.INGEST_DEPTH, device=dev)
+        self.blocks = iter(self.feed)
+
+    def push(self, _):
+        return self.ex.push(next(self.blocks))
+
+    def close(self):
+        self.feed.close()
+        self.source.close()
+
+
 def cells(dev):
     """(name, executor, block) for each cell, built one at a time."""
     sc = StreamConfig(block_size=cs.BLOCK, max_frames_per_block=cs.SLOTS)
@@ -112,6 +170,9 @@ def cells(dev):
     yield ("graph_power_meter", StreamExecutor(
         grc.build(cs.METER_SPEC), cs.PSD_BLOCK, device=dev),
         cs.spectrum_blocks(dev)[0])
+    with tempfile.TemporaryDirectory() as d:
+        paths = cs.write_capture(cs.HEADLINE.spec, dev, pathlib.Path(d))
+        yield "ingest_headline", IngestCell(dev, paths), None
 
 
 def host_windows(ex, x, n=10, windows=3):
@@ -131,7 +192,8 @@ def host_windows(ex, x, n=10, windows=3):
 
 def device_profile(ex, x):
     """(busy ms/push, ops/push, {op name: ms/push} of the largest, {port
-    kernel: ms/push}) from a torch.profiler trace of STEPS pushes."""
+    kernel: ms/push}, host-to-card copy ms/push) from a torch.profiler
+    trace of STEPS pushes."""
     for _ in range(3):
         ex.push(x)
     torch.cuda.synchronize()
@@ -156,7 +218,9 @@ def device_profile(ex, x):
         m = PORT_KERNEL.match(name)
         if m and m.group(1) in PORT_KERNELS:
             port[m.group(1)] += ms / STEPS
-    return busy / 1e3 / STEPS, len(evs) / STEPS, top, dict(port)
+    h2d = sum(ms for name, ms in by_name.items()
+              if name.startswith("Memcpy HtoD"))
+    return busy / 1e3 / STEPS, len(evs) / STEPS, top, dict(port), h2d / STEPS
 
 
 def main():
@@ -170,21 +234,31 @@ def main():
     for name, ex, x in cells(dev):
         ex.push(x)                                  # warm-up
         host = host_windows(ex, x)
-        busy, ops, top, port = device_profile(ex, x)
+        busy, ops, top, port, h2d = device_profile(ex, x)
         walls = [w for w, _ in host]
         row = {
             "wall_ms": [min(walls), max(walls)],
             "enqueue_ms": [min(e for _, e in host), max(e for _, e in host)],
             "busy_ms": busy, "ops": ops,
             "idle_share": [1 - busy / min(walls), 1 - busy / max(walls)],
-            "top_ms": top, "port_ms": port,
+            "top_ms": top, "port_ms": port, "h2d_ms": h2d,
         }
+        if isinstance(ex, IngestCell):
+            ex.close()
+            for k, i in (("read_ms", 0), ("convert_ms", 1)):
+                ms = [1e3 * t[i] for t in ex.source.times]
+                row[k] = [sum(ms) / len(ms), min(ms), max(ms)]
+            row["blocks_read"] = len(ex.source.times)
         rows[name] = row
         print(f"{name}: wall {row['wall_ms']} ms, enqueue "
               f"{row['enqueue_ms']} ms, busy {busy:.4f} ms, {ops:g} ops, "
               f"idle {row['idle_share']}; top "
               + ", ".join(f"{k[:48]} {v:.4f}" for k, v in top.items())
-              + "; port " + ", ".join(f"{k} {v:.4f}" for k, v in port.items()),
+              + "; port " + ", ".join(f"{k} {v:.4f}" for k, v in port.items())
+              + f"; h2d {h2d:.4f} ms"
+              + (f"; read {row['read_ms']} ms, convert {row['convert_ms']} "
+                 f"ms a block (mean, min, max of {row['blocks_read']})"
+                 if "read_ms" in row else ""),
               flush=True)
         del ex, x
         torch.cuda.empty_cache()

@@ -7,22 +7,33 @@ and peak bins exactly), the scanner's per-channel powers (printed to 0.1
 dB, within 0.1) and flags, and run_flowgraph's printed shapes and saved
 output.  With --snr the channel's noise differs by construction
 (torch.Generator against jax.random): the frames recovered must still be
-the same, their starts within 2 samples."""
+the same, their starts within 2 samples.  ofdm_chat and the spectrum
+analyzer's local and remote modes run over loopback UDP (ports bound to 0)
+in every pairing of the two packages."""
 
+import contextlib
+import io
 import json
 import pathlib
 import re
+import threading
+import time
 
 import numpy as np
 import pytest
 
 import tests.golden.golden_ofdm as G
+from tpu_ofdm.apps import ofdm_chat as j_chat
 from tpu_ofdm.apps import ofdm_loopback as j_loopback
 from tpu_ofdm.apps import run_flowgraph as j_run
+from tpu_ofdm.apps import spectrum_analyzer as j_analyzer
 from tpu_ofdm.apps import spectrum_logger as j_logger
 from tpu_ofdm.apps import wideband_scanner as j_scanner
+from tpu_ofdm.io import SpectrumSubscriber, UdpSampleLink
+from tpu_ofdm_torch.apps import ofdm_chat as t_chat
 from tpu_ofdm_torch.apps import ofdm_loopback as t_loopback
 from tpu_ofdm_torch.apps import run_flowgraph as t_run
+from tpu_ofdm_torch.apps import spectrum_analyzer as t_analyzer
 from tpu_ofdm_torch.apps import spectrum_logger as t_logger
 from tpu_ofdm_torch.apps import wideband_scanner as t_scanner
 from tpu_ofdm_torch.io import file_sink
@@ -182,3 +193,150 @@ def test_run_flowgraph_matches_jax(tmp_path, capsys, example, args, db):
             a, b = 10.0 ** (a / 10.0), 10.0 ** (b / 10.0)
         np.testing.assert_allclose(a, b, rtol=0,
                                    atol=tol * max(1.0, np.abs(b).max()))
+
+
+def _free_port() -> int:
+    probe = UdpSampleLink(0)
+    port = probe.port
+    probe.close()
+    return port
+
+
+def _in_thread(fn, args):
+    box = {}
+    t = threading.Thread(target=lambda: box.update(rc=fn(args)), daemon=True)
+    t.start()
+    return t, box
+
+
+CHAT = ["hello over the air", "second message"]
+
+
+@pytest.mark.parametrize("sender,listener", [
+    ("jax", "jax"), ("port", "port"), ("jax", "port"), ("port", "jax")])
+def test_ofdm_chat_over_udp_as_jax(capsys, sender, listener):
+    """ofdm_chat send -> listen over loopback UDP (tests/test_apps.py's
+    arguments; the port's with --device cpu): every pairing of the two
+    packages prints both messages with their frame numbers, as the JAX
+    pair does."""
+    apps = {"jax": (j_chat.main, []), "port": (t_chat.main, CPU)}
+    port = _free_port()
+    listen_main, listen_dev = apps[listener]
+    t, box = _in_thread(listen_main, [
+        "listen", "--port", str(port), "--messages", "2", "--timeout", "30",
+        "--block-size", "8192", *listen_dev])
+    time.sleep(1.0)                                  # listener socket up
+    send_main, send_dev = apps[sender]
+    args = ["send", "--remote-host", "127.0.0.1", "--port", str(port)]
+    for m in CHAT:
+        args += ["-m", m]
+    assert send_main(args + send_dev) == 0
+    t.join(timeout=60)
+    assert not t.is_alive() and box.get("rc") == 0
+    lines = [s for s in capsys.readouterr().out.splitlines()
+             if s.startswith("[")]
+    assert lines == [f"[{i}] {m}" for i, m in enumerate(CHAT)]
+
+
+ANALYZER = ["--tone", "0.25", "--fft-len", "128", "--block-size", "8192",
+            "--blocks", "40", "--frame-rate", "1000", "--center-freq", "1e6",
+            "--sample-rate", "4e6"]
+
+
+def _published(local_main, extra):
+    """The first 3 spectrum frames a local worker publishes, received by a
+    SpectrumSubscriber of the JAX package."""
+    sub = SpectrumSubscriber(bind_port=0)
+    t, box = _in_thread(local_main, ["local", *ANALYZER, "--port",
+                                     str(sub.port), *extra])
+    try:
+        frames = [sub.receive(timeout=20) for _ in range(3)]
+    finally:
+        t.join(timeout=60)
+        sub.close()
+    assert not t.is_alive() and box.get("rc") == 0
+    assert all(fr is not None for fr in frames)
+    return frames
+
+
+def test_spectrum_analyzer_local_publishes_the_jax_spectra():
+    """Both local workers on the same tone: the first frame (one push of
+    64 frames) equal in linear power at 1e-4 * max (the psd kernel's
+    bar), the same frame counts and peak bin (0.25 * 128), max-hold at or
+    above the average."""
+    want = _published(j_analyzer.main, [])
+    got = _published(t_analyzer.main, CPU)
+    g, w = got[0], want[0]
+    assert (g.seq, g.n_frames, g.center_freq, g.sample_rate) == \
+        (w.seq, w.n_frames, w.center_freq, w.sample_rate) == (0, 64, 1e6, 4e6)
+    for a, b in ((g.avg_db, w.avg_db), (g.max_db, w.max_db)):
+        pa, pb = 10.0 ** (a / 10.0), 10.0 ** (b / 10.0)
+        np.testing.assert_allclose(pa, pb, rtol=0, atol=1e-4 * pb.max())
+    for fr in got:
+        assert int(np.argmax(fr.avg_db)) == 32
+        assert (fr.max_db >= fr.avg_db - 1e-3).all()
+
+
+@pytest.mark.parametrize("worker,client", [("port", "port"), ("jax", "port"),
+                                           ("port", "jax")])
+def test_spectrum_analyzer_local_remote_pair(capsys, worker, client):
+    """tests/test_apps.py's local/remote pair, in every pairing with the
+    port: the client renders 3 frames and returns 0."""
+    apps = {"jax": (j_analyzer.main, []), "port": (t_analyzer.main, CPU)}
+    port = _free_port()
+    local_main, local_dev = apps[worker]
+    t, box = _in_thread(local_main, ["local", *ANALYZER, "--port", str(port),
+                                     *local_dev])
+    try:
+        rc = apps[client][0](["remote", "--port", str(port), "--frames", "3",
+                              "--timeout", "20", "--width", "40"])
+    finally:
+        t.join(timeout=60)
+    assert rc == 0 and box.get("rc") == 0
+    lines = [s for s in capsys.readouterr().out.splitlines() if "MHz" in s]
+    assert len(lines) >= 3
+    assert all("-1.000..    3.000 MHz" in s for s in lines), lines
+
+
+def _announced_port(err, t, timeout=30.0) -> int:
+    """The port that an app run with --port 0 names on stderr once bound."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and t.is_alive():
+        m = re.search(r"on udp port (\d+)", err.getvalue())
+        if m:
+            return int(m.group(1))
+        time.sleep(0.01)
+    raise AssertionError(f"no port announced: {err.getvalue()!r}")
+
+
+@pytest.mark.parametrize("app", ["ofdm_chat", "spectrum_analyzer"])
+def test_port_zero_receiver_announces_its_port(capsys, app):
+    """The port's receiving apps (chat listen, analyzer remote) bind a free
+    port with --port 0 and name it on stderr once bound; the JAX sender
+    started after the announcement reaches them with nothing lost."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        if app == "ofdm_chat":
+            t, box = _in_thread(t_chat.main, [
+                "listen", "--port", "0", "--messages", "2", "--timeout", "30",
+                "--block-size", "8192", *CPU])
+            port = _announced_port(err, t)
+            args = ["send", "--remote-host", "127.0.0.1", "--port", str(port)]
+            for m in CHAT:
+                args += ["-m", m]
+            assert j_chat.main(args) == 0
+        else:
+            t, box = _in_thread(t_analyzer.main, [
+                "remote", "--port", "0", "--frames", "3", "--timeout", "20",
+                "--width", "40"])
+            port = _announced_port(err, t)
+            assert j_analyzer.main(["local", *ANALYZER, "--port",
+                                    str(port)]) == 0
+        t.join(timeout=60)
+    assert not t.is_alive() and box.get("rc") == 0
+    out = capsys.readouterr().out.splitlines()
+    if app == "ofdm_chat":
+        assert [s for s in out if s.startswith("[")] == \
+            [f"[{i}] {m}" for i, m in enumerate(CHAT)]
+    else:
+        assert len([s for s in out if "MHz" in s]) == 3

@@ -38,12 +38,14 @@ def test_port_imports_without_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.'))\n"
+        "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') or "
+        "m == 'orbax' or m.startswith('orbax.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 28, names\n"
+        "assert len(names) >= 59, names\n"
         "assert {'tpu_ofdm_torch.grc', 'tpu_ofdm_torch.io.sources', "
-        "'tpu_ofdm_torch.apps.run_flowgraph', 'tpu_ofdm_torch.stream.graph'}"
-        " <= set(names), names\n"
+        "'tpu_ofdm_torch.apps.run_flowgraph', 'tpu_ofdm_torch.stream.graph', "
+        "'tpu_ofdm_torch.runtime', 'tpu_ofdm_torch.io.feed', "
+        "'tpu_ofdm_torch.stream.checkpoint'} <= set(names), names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -98,6 +100,13 @@ def _apps():
     return torch.empty(0, device=p.parse_args([]).device).device
 
 
+def _device_feed():
+    from tpu_ofdm_torch.io import DeviceFeed
+    feed = DeviceFeed(iter([np.zeros(8, np.complex64)]))
+    (block,) = feed
+    return block.device
+
+
 def _scan_blocks():
     """A stateless block, whose init names no device, over numpy blocks."""
     from tpu_ofdm_torch.stream import block as B
@@ -108,9 +117,9 @@ def _scan_blocks():
 
 
 @pytest.mark.parametrize("entry", [_executor, _empty_tx_in, _queue_tx_in,
-                                   _apps, _scan_blocks],
+                                   _apps, _scan_blocks, _device_feed],
                          ids=["StreamExecutor", "empty_tx_in", "queue_tx_in",
-                              "apps", "scan_blocks"])
+                              "apps", "scan_blocks", "DeviceFeed"])
 def test_entry_points_default_to_the_card(entry):
     """With no device named, an entry point goes to cuda: where torch has
     no card it raises torch's own error, never falls back to the CPU."""
@@ -122,19 +131,23 @@ def test_entry_points_default_to_the_card(entry):
 
 
 def test_io_package_imports_no_feed():
-    """tpu_ofdm_torch.io exports only what is ported: its sources.  The
-    JAX package's io imports its jax device feed eagerly; the port's must
-    import no feed, PDU, PMT or transport module."""
+    """Importing tpu_ofdm_torch.io starts no feed and touches no CUDA
+    state (no thread, no initialized CUDA context: the feed makes its
+    stream and pinned buffers when it is constructed), and it exports
+    exactly the JAX package's io names."""
     code = (
-        "import sys\n"
+        "import sys, threading\n"
+        "import torch\n"
         "import tpu_ofdm_torch.io as io\n"
-        "bad = sorted(m for m in sys.modules if m.startswith("
-        "'tpu_ofdm_torch.io.') and m != 'tpu_ofdm_torch.io.sources')\n"
-        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not torch.cuda.is_initialized()\n"
         "names = sorted(n for n in vars(io) if not n.startswith('_'))\n"
-        "assert names == ['file_sink', 'file_size_samples', 'file_source', "
-        "'head', 'noise_source', 'sig_source', 'sources', 'vector_source'], "
-        "names\n"
+        "import tpu_ofdm.io as jio\n"
+        "want = sorted(n for n in vars(jio) if not n.startswith('_'))\n"
+        "assert names == want, (names, want)\n"
+        "assert {'DeviceFeed', 'pmt', 'Pdu', 'PduQueue', 'UdpPduLink', "
+        "'UdpSampleLink', 'file_source', 'SpectrumPublisher', "
+        "'SpectrumSubscriber', 'pack_spectrum'} <= set(names), names\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
@@ -143,7 +156,7 @@ def test_io_package_imports_no_feed():
 
 def test_chip_smoke_imports_no_jax():
     src = (ROOT / "chip_smoke.py").read_text()
-    assert not re.search(r"^\s*(import|from)\s+(jax|tpu_ofdm)\b", src, re.M)
+    assert not re.search(r"^\s*(import|from)\s+(jax|orbax|tpu_ofdm)\b", src, re.M)
 
 
 @pytest.mark.parametrize("script", ["profile_paths.py", "kernel_ab.py"])
@@ -151,7 +164,7 @@ def test_card_scripts_import_no_jax(script):
     """The other scripts that run on the card's machine, which has no
     JAX."""
     src = (ROOT / script).read_text()
-    assert not re.search(r"^\s*(import|from)\s+(jax|tpu_ofdm)\b", src, re.M)
+    assert not re.search(r"^\s*(import|from)\s+(jax|orbax|tpu_ofdm)\b", src, re.M)
 
 
 def test_no_undated_perf_figures_in_port():
