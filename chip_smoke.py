@@ -11,7 +11,8 @@ in order -- any failure raises and the script exits non-zero:
               the paths' shapes and on golden frames; kernel and plain
               times (warm, with the launches queued ahead so that the
               events time the card); rx_block on the card against rx_block
-              on the CPU.  sc_detect and gather also batched over 64
+              on the CPU.  sc_detect (fft 64) also with its frames ~60 dB
+              over the noise; sc_detect and gather also batched over 64
               channels; gather bit for bit at odd and even F on windows of
               every class and both parities, and timed cold (L2 flushed
               before each launch) and per call from the host beside
@@ -93,7 +94,37 @@ in order -- any failure raises and the script exits non-zero:
               tone's bin peaks, launches counted), metrics.trace naming
               the port's sc_detect and gather kernels, its host-to-card
               copies of the feed's blocks giving the H2D ms and GB/s
- 12. report   one JSON line of per-kernel results, the nvidia-smi line, and
+ 12. shard    the multi-device layer (tpu_ofdm_torch.shard) on meshes
+              that repeat this one card, so one card steps through the
+              shards in turn (the per-chunk times are NOT a scaling
+              figure): (a) phase 4's stream on a 1x4 mesh (S 2^23, K 120 a
+              shard) over 4 staged blocks and a drain: every frame once,
+              the frames of rx_stream_block on the same blocks, 4 sc_detect
+              and 4 gather launches a push; (b) BASELINE config 5 at 512
+              channels (8 taps an arm, 64 B payloads) on a 4x2 mesh, 2^25
+              wideband samples a chunk (S 32768, K 4), 4 chunks of frames
+              on 32 channels (mid-shard, across the time-shard ownership
+              edge and data edge, across the chunk boundary) and a drain:
+              every frame once on its channel with payload, crc_ok and a
+              start within 40 samples, the frames of a 1x1 mesh and of
+              wideband_rx_block(512), a checkpoint after chunk 2 resumed
+              exactly, 8 pfb, 8 sc_detect and 8 gather launches a chunk;
+              (c) (b)'s first chunk through a world-size-1 NCCL group at
+              1x1, every output leaf bit-identical to the local 1x1, and
+              psum_tree, all_gather_spectrum, broadcast_control and
+              MeshHeartbeat in that group; (d) spectrum_analyzer mesh on a
+              2x2 mesh -> remote over loopback UDP: the tone's bin, psd and
+              pfb launched once a shard a step; (e) dryrun_multichip(8).
+              In (a), (b) and (d) each kernel of the path is also held
+              against its plain version, at phase 3's bars, on the inputs
+              the second shard gave it (the first with a neighbour's
+              halo): sc_detect on [3072 | 2^23] and 128 x [1024 | 32768]
+              (config 5's frames ~1e5 over the channel noise: P and R at
+              atol 1e-5 times the inputs' scale squared), gather at K 120
+              and K 4 x 128, pfb at 512 channels on a 2^22-sample piece
+              with its halo, psd at N 32 on a shard's 8 x 32768 rows
+              (bin by bin against a float64 PSD) and pfb at 16 channels
+ 13. report   one JSON line of per-kernel results, the nvidia-smi line, and
               the final {"ok": true, ...} line
 """
 
@@ -159,6 +190,11 @@ from tpu_ofdm_torch.spectrum.channelizer import (channelize,
                                                  polyphase_decompose,
                                                  synthesize_bursts)
 from tpu_ofdm_torch.runtime import FileStreamer
+from tpu_ofdm_torch.shard import distributed as shard_dist
+from tpu_ofdm_torch.shard import (collect_sharded_stream_frames, make_mesh,
+                                  sharded_rx_stream_block,
+                                  sharded_wideband_stream_block)
+from tpu_ofdm_torch.shard.dryrun import dryrun_multichip
 from tpu_ofdm_torch.stream.checkpoint import load_state, resume_step, save_state
 from tpu_ofdm_torch.stream.executor import StreamExecutor
 from tpu_ofdm_torch.utils import metrics
@@ -373,10 +409,13 @@ def phase_build():
 
 # -- 3. kernels against their plain versions ---------------------------------
 
-def compare_rows(got, ref, what: str) -> float:
+def compare_rows(got, ref, what: str, unit: float = 1.0) -> float:
     """Kernel rows vs plain rows: >= 99% identical argmax; the other five
-    rows at rtol 1e-4 / atol 1e-5 where the argmax agrees.  Returns the max
-    abs error over the compared entries."""
+    rows at rtol 1e-4 / atol 1e-5 where the argmax agrees.  Rows 2-5 (P and
+    R) are sums of products of two samples: for inputs `unit` times the
+    scale of phase 3's (unit 1 there), their atol is 1e-5 * unit^2, the same
+    bar at that scale.  Returns the max abs error over the compared
+    entries, those of rows 2-5 divided by unit^2 (at phase 3's scale)."""
     same = got[1] == ref[1]
     frac = same.float().mean().item()
     if frac < 0.99:
@@ -388,10 +427,13 @@ def compare_rows(got, ref, what: str) -> float:
     for i in (0, 2, 3, 4, 5):
         m = live if i < 5 else torch.ones_like(live)
         a, b = got[i][m], ref[i][m]
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5,
+        scale = 1.0 if i == 0 else unit ** 2
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * scale,
                                    msg=lambda s: f"{what} row {i}: {s}")
-        err = max(err, (a - b).abs().max().item())
-    log(f"  {what}: argmax agrees {frac:.5f}, max abs err {err:.3g}")
+        err = max(err, (a - b).abs().max().item() / scale)
+    log(f"  {what}: argmax agrees {frac:.5f}, max abs err {err:.3g}"
+        + (f" at phase 3's scale (inputs {unit:.4g} times it)"
+           if unit != 1.0 else ""))
     return err
 
 
@@ -447,6 +489,17 @@ def phase_kernels(dev, tag: str) -> list[dict]:
             head = buf[:h].contiguous() if h else None
             check_sc_detect(spec, buf[h:].contiguous(), head, positions,
                             f"sc_detect fft {fft_len} cp {cp} head {h}")
+    # a quiet channel (fft 64): the same frames over 5e-4 rms noise, ~60 dB
+    # under them, so a window just past a frame is ~1e6 times weaker than
+    # the segment before it
+    frame = golden_frame(HEADLINE.spec)
+    positions = list(range(1000, n - 2 * len(frame), n // 24))
+    quiet = noisy_buffers(1, n, seed=65, dev=dev) * 0.025
+    add_frames(quiet, frame, positions)
+    check_sc_detect(HEADLINE.spec, quiet[0, 3072:].contiguous(),
+                    quiet[0, :3072].contiguous(), positions,
+                    "sc_detect fft 64 cp 16 head 3072, frames ~60 dB over "
+                    "the noise")
 
     # the headline shape: [3072-sample history | 2^25 block], 448 frames
     spec = HEADLINE.spec
@@ -2417,6 +2470,459 @@ def phase_ingest(dev, tag: str, main_rate: float) -> dict:
             "stages_ms": stages, "h2d": h2d}
 
 
+# -- 12. the multi-device layer on repeated-device meshes --------------------
+
+SHARD_T = 4              # (a) time shards of the headline stream, 1 x 4
+SHARD_K = 120            # slots a shard: 448 frames a block over 4 shards
+SHARD_BLOCKS = 4         # staged blocks, then one drain push
+SHARD_TIMED = 8          # pushes a timing window
+C5_CHANS = 512           # (b) BASELINE config 5 (bench/scaling.py's shape)
+C5_MESH = (4, 2)
+C5_TAPS = 8              # taps an arm
+C5_S = BLOCK // C5_CHANS // C5_MESH[1]   # per channel, per time shard
+C5_K = 4
+C5_CHUNKS = 4            # chunks with frames, then one drain push
+C5_CUT = 2               # checkpoint after chunks 0 .. C5_CUT - 1
+C5_ACTIVE = tuple(range(5, C5_CHANS, C5_CHANS // 32))   # 8 a channel shard
+C5_SLACK = 40            # group delay of the two filterbanks (test_wideband)
+C5_MID = 9000            # per-channel offset of a mid-shard frame
+MESH_ANALYZER = ["--tone", "0.25", "--noise", "0.01", "--n-chan", "16",
+                 "--chan-fft-len", "32", "--block-size", str(1 << 20),
+                 "--blocks", "8", "--frame-rate", "100000", "--mesh", "2x2",
+                 "--center-freq", "1e6", "--sample-rate", "4e6"]
+MESH_ANALYZER_BIN = 384  # 0.75 of the 16 x 32 full-band bins
+
+
+def busy_union(spans) -> float:
+    """Total length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def chunk_times(push, inputs, n: int = SHARD_TIMED) -> dict:
+    """Wall ms a chunk over n pushes (host clock, ended by a synchronize)
+    and device busy ms a chunk (the union of the card's kernel, copy and
+    set intervals in a torch.profiler trace of len(inputs) pushes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        push(inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x in inputs:
+            push(x)
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return {"wall_ms": wall, "busy_ms": busy_union(spans) / 1e3 / len(inputs)}
+
+
+PLAIN = {"sc_detect": kdetect.sc_detect_rows_plain,
+         "gather": kgather.gather_windows_plain,
+         "pfb": kpfb.channelize_fused_plain, "psd": kpsd.psd_fused_plain}
+
+
+def _cloned(v):
+    return v.clone() if isinstance(v, torch.Tensor) else v
+
+
+@contextlib.contextmanager
+def shard_inputs(*names, call: int = 1):
+    """Inside the block, record the arguments (tensors cloned) of call
+    number `call` of each named kernel wrapper -- call 1 is the second
+    shard's, the first whose halo comes from a neighbour.  A stand-in takes
+    the wrapper's place under every name the port's modules bind it to and
+    calls it; the launches it counts go on to the wrapper's count.  Yields
+    {name: (args, kwargs)}."""
+    seen, calls, swaps = {}, collections.Counter(), []
+
+    def stand_in(name, fn):
+        def spy(*a, **kw):
+            if calls[name] == call:
+                seen[name] = (tuple(map(_cloned, a)),
+                              {k: _cloned(v) for k, v in kw.items()})
+            calls[name] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                fn.launches += spy.launches
+                spy.launches = 0
+        spy.launches = 0
+        return spy
+
+    for name in names:
+        fn = WRAPPERS[name]
+        spy = stand_in(name, fn)
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__name__", "").startswith("tpu_ofdm_torch."):
+                for attr in [k for k, v in vars(mod).items() if v is fn]:
+                    swaps.append((mod, attr, fn))
+                    setattr(mod, attr, spy)
+    try:
+        yield seen
+    finally:
+        for mod, attr, fn in swaps:
+            setattr(mod, attr, fn)
+    if set(seen) != set(names):
+        raise AssertionError(f"no call {call} of {set(names) - set(seen)}")
+
+
+def check_shard_inputs(seen: dict, what: str) -> dict:
+    """Each kernel against its plain version on the inputs one shard of the
+    path gave it, at phase 3's bars: sc_detect by compare_rows (P and R at
+    the inputs' scale), gather bit for bit, pfb within 2e-4 * max, psd
+    within 1e-4 * max and bin by bin against the float64 PSD
+    (check_psd_witness: the analyzer's tone puts float32 past
+    check_power's bar).  Returns each kernel's max abs error."""
+    errs = {}
+    for name, (a, kw) in seen.items():
+        got = WRAPPERS[name](*a, **kw)
+        want = PLAIN[name](*a, **kw)
+        shapes = ", ".join(str(tuple(v.shape)) for v in (*a, *kw.values())
+                           if isinstance(v, torch.Tensor))
+        label = f"{what}: {name} on a shard's inputs {shapes}"
+        if name == "sc_detect":
+            # the inputs' peak over that of phase 3's frames (golden frames
+            # over weak noise); config 5's frames are n_chan times stronger
+            # and the channelizer adds its gain
+            peak = max(a[0].abs().max().item(), kw["head"].abs().max().item())
+            unit = max(1.0, peak / float(np.abs(golden_frame(
+                HEADLINE.spec)).max()))
+            errs[name] = compare_rows(got, want, label, unit)
+        elif name == "gather":
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label}: kernel differs from plain")
+            errs[name] = 0.0
+            log(f"  {label}: exact")
+        elif name == "pfb":
+            errs[name] = check_close(got, want, 2e-4, label)
+        else:
+            errs[name] = check_close(got, want, 1e-4, label)
+            check_psd_witness(got, want, psd_witness(*a, **kw), label)
+    return errs
+
+
+def psd_witness(x, fft_len: int, window: str = "hann") -> torch.Tensor:
+    """The plain PSD of x's frames in float64."""
+    wv, norm = kpsd.window_norm(fft_len, window)
+    nf = x.shape[-1] // fft_len
+    frames = x[..., : nf * fft_len].reshape(*x.shape[:-1], nf, fft_len)
+    y = torch.fft.fft(frames.to(torch.complex128) * torch.as_tensor(
+        wv / np.sqrt(norm), device=x.device))
+    return y.real ** 2 + y.imag ** 2
+
+
+def check_psd_witness(got, want, exact, what: str) -> None:
+    """Bin by bin against the float64 PSD, at check_power's bar, or, where
+    float32 rounding puts the plain version itself past that bar (a tone
+    far over the noise floor spreads its rounding into every bin), within
+    1.25 times the plain version's own distance from it."""
+    own, floor = power_ratio(want, exact)
+    ratio, _ = power_ratio(got, exact)
+    if not ratio <= max(1.0, 1.25 * own):
+        raise AssertionError(f"{what}: a bin is off the float64 PSD by "
+                             f"{ratio:.3g} x check_power's bar, the plain "
+                             f"version by {own:.3g} x")
+    log(f"  {what}: worst bin against the float64 PSD at {ratio:.3g} of "
+        f"check_power's bar (floor {floor:.3g}), the plain version at "
+        f"{own:.3g}")
+
+
+def launches_per_push(what: str, names, pushes: int, per_push: int) -> dict:
+    launches = read_launches(what, *names)
+    if set(launches.values()) != {pushes * per_push}:
+        raise AssertionError(f"{what}: {launches} launches in {pushes} "
+                             f"pushes, want {per_push} each a push")
+    return launches
+
+
+def shard_headline(dev, counts: collections.Counter) -> dict:
+    """(a) phase 4's stream on a 1 x SHARD_T mesh of this card."""
+    spec = HEADLINE.spec
+    H = history_len(spec)
+    S = BLOCK // SHARD_T
+    blocks, pos = staged_blocks(spec, SHARD_BLOCKS, dev, seed=0)
+    drain = torch.zeros((1, BLOCK), dtype=torch.complex64, device=dev)
+    chunks = [blocks[i:i + 1] for i in range(SHARD_BLOCKS)] + [drain]
+    mesh = make_mesh(1, SHARD_T, devices=[dev] * SHARD_T)
+    ex = StreamExecutor(sharded_rx_stream_block(spec, mesh, 1, S, SHARD_K),
+                        BLOCK, device=dev)
+    reset_launches("sc_detect", "gather")
+    with shard_inputs("sc_detect", "gather") as seen:
+        outs = [ex.push(c) for c in chunks]
+    launches = launches_per_push("shard 1x4", ("sc_detect", "gather"),
+                                 len(chunks), SHARD_T)
+    counts.update(launches)
+    errs = check_shard_inputs(seen, "shard 1x4")
+    del seen
+    frames = collect_sharded_stream_frames(outs, S, spec, SHARD_T)
+    ref_ex = StreamExecutor(rx_stream_block(spec, StreamConfig(
+        block_size=BLOCK, max_frames_per_block=SLOTS)), BLOCK, device=dev)
+    ref = collect_frames([ref_ex.push(c[0]) for c in chunks],
+                         block_size=BLOCK, hist=H)
+    key = lambda f: (f["frame_num"], f["payload"], f["crc_ok"],  # noqa: E731
+                     f["abs_start"])
+    want = [i * BLOCK + p for i in range(SHARD_BLOCKS) for p in pos]
+    got = sorted(f["abs_start"] for f in frames)
+    off = np.asarray(got) - np.asarray(want) if len(got) == len(want) else None
+    bad = [f for f in frames if f["payload"] != MSG or not f["crc_ok"]
+           or f["channel"] != 0]
+    if off is None or bad or not np.all((off >= 0) & (off <= spec.cp_len)):
+        raise AssertionError(f"shard 1x4: {len(frames)} frames for "
+                             f"{len(want)} injected, {len(bad)} bad")
+    if sorted(map(key, frames)) != sorted(map(key, ref)):
+        raise AssertionError("shard 1x4: frames differ from rx_stream_block's")
+    times = chunk_times(ex.push, chunks[:SHARD_BLOCKS])
+    log(f"shard (a) 1x{SHARD_T} headline: all {len(frames)} frames once, "
+        f"payload + crc_ok + start, equal to rx_stream_block's; "
+        f"{SHARD_T} sc_detect and {SHARD_T} gather a push; per "
+        f"2^{BLOCK.bit_length() - 1} chunk "
+        f"wall {times['wall_ms']:.3f} ms, busy {times['busy_ms']:.3f} ms "
+        "(one card stepping through 4 logical shards: not a scaling "
+        "figure)")
+    return {"frames": len(frames), **times, "errors": errs}
+
+
+def c5_targets(spec) -> list[tuple[int, int, int, bytes]]:
+    """(channel, per-channel start, frame number, payload) of config 5's
+    frames: one a chunk on each active channel, by turns mid-shard, across
+    the time-shard ownership edge S - H, across the time-shard data edge
+    S, and across the chunk boundary (not in the last chunk: the drain
+    chunk stays silent)."""
+    H = history_len(spec)
+    S, Mc = C5_S, C5_MESH[1] * C5_S
+    out = []
+    for k in range(C5_CHUNKS):
+        for j, ch in enumerate(C5_ACTIVE):
+            kind = (j + k) % 4
+            if kind == 3 and k == C5_CHUNKS - 1:
+                kind = 0
+            off = [C5_MID + (j % 2) * S, S - H - 200, S - 300, Mc - 400][kind]
+            out.append((ch, k * Mc + off, k * len(C5_ACTIVE) + j,
+                        f"config5 ch{ch} chunk{k}".encode()))
+    return out
+
+
+def c5_capture(spec, dev) -> torch.Tensor:
+    """The config-5 chunks, (C5_CHUNKS + 1) x 2^25 wideband samples: the
+    targets' golden frames, times n_chan, through the synthesis filterbank
+    over 0.01-rms noise; the last chunk is zeros (the drain)."""
+    taps = lowpass_taps(C5_CHANS, taps_per_arm=C5_TAPS)
+    bursts = [(ch, p, golden_frame(spec, msg, n) * C5_CHANS)
+              for ch, p, n, msg in c5_targets(spec)]
+    n = C5_CHUNKS * BLOCK
+    wide = torch.zeros((C5_CHUNKS + 1) * BLOCK, dtype=torch.complex64,
+                       device=dev)
+    wide[:n] = torch.as_tensor(synthesize_bursts(n, C5_CHANS, bursts,
+                                                 taps=taps)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(50)
+    wide[:n] += torch.view_as_complex(
+        torch.randn((n, 2), generator=gen, device=dev) * 0.01)
+    return wide.reshape(C5_CHUNKS + 1, BLOCK)
+
+
+def c5_executor(mesh, dev, S=C5_S, K=C5_K) -> StreamExecutor:
+    taps = lowpass_taps(C5_CHANS, taps_per_arm=C5_TAPS)
+    return StreamExecutor(sharded_wideband_stream_block(
+        WIDEBAND.spec, mesh, C5_CHANS, S, taps=taps, max_frames_per_shard=K),
+        BLOCK, device=dev)
+
+
+def c5_key(f: dict) -> tuple:
+    return (f["channel"], f["abs_start"], f["frame_num"], f["payload"],
+            f["crc_ok"])
+
+
+def check_c5_frames(frames, what: str) -> None:
+    """Every target once, on its channel, with its payload, frame number,
+    crc_ok and a start within C5_SLACK samples."""
+    want = {n: (ch, p, msg) for ch, p, n, msg in c5_targets(WIDEBAND.spec)}
+    got = {}
+    for f in frames:
+        if not f["crc_ok"] or f["frame_num"] in got:
+            raise AssertionError(f"{what}: a bad or repeated frame {f}")
+        got[f["frame_num"]] = f
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: frames {sorted(set(want) - set(got))} "
+                             f"lost, {sorted(set(got) - set(want))} extra")
+    for n, (ch, p, msg) in want.items():
+        f = got[n]
+        if f["channel"] != ch or f["payload"] != msg \
+                or abs(f["abs_start"] - p) > C5_SLACK:
+            raise AssertionError(f"{what}: frame {n} {f} vs {(ch, p, msg)}")
+
+
+def shard_config5(dev, counts: collections.Counter) -> tuple[dict, list]:
+    """(b) config 5 at 512 channels on a 4x2 mesh of this card."""
+    spec = WIDEBAND.spec
+    chunks = list(c5_capture(spec, dev))
+    n_c, n_t = C5_MESH
+    mesh = make_mesh(n_c, n_t, devices=[dev] * (n_c * n_t))
+    ex = c5_executor(mesh, dev)
+    names = ("pfb", "sc_detect", "gather")
+    reset_launches(*names)
+    with shard_inputs(*names) as seen:
+        outs = [ex.push(c) for c in chunks]
+    launches = launches_per_push("shard config 5", names, len(chunks),
+                                 n_c * n_t)
+    counts.update(launches)
+    errs = check_shard_inputs(seen, "config 5 4x2")
+    del seen
+    frames = collect_sharded_stream_frames(outs, C5_S, spec, n_t)
+    check_c5_frames(frames, "config 5 4x2")
+
+    one = c5_executor(make_mesh(1, 1, devices=[dev]), dev, n_t * C5_S, 8)
+    f1 = collect_sharded_stream_frames([one.push(c) for c in chunks],
+                                       n_t * C5_S, spec, 1)
+    wb = StreamExecutor(wideband_rx_block(
+        spec, C5_CHANS, StreamConfig(block_size=BLOCK, max_frames_per_block=8),
+        taps=lowpass_taps(C5_CHANS, taps_per_arm=C5_TAPS)), BLOCK, device=dev)
+    fw = collect_wideband_frames([wb.push(c) for c in chunks], n_t * C5_S,
+                                 spec)
+    for other, name in ((f1, "1x1"), (fw, "wideband_rx_block(512)")):
+        if sorted(map(c5_key, other)) != sorted(map(c5_key, frames)):
+            raise AssertionError(f"config 5: the 4x2 frames differ from {name}'s")
+
+    with tempfile.TemporaryDirectory() as d:
+        ex1 = c5_executor(mesh, dev)
+        outs_a = [ex1.push(c) for c in chunks[:C5_CUT]]
+        save_state(d, ex1)
+        ex2 = c5_executor(mesh, dev)
+        if resume_step(load_state(d, ex2)) != C5_CUT:
+            raise AssertionError("config 5: resume step")
+        outs_b = [ex2.push(c) for c in chunks[C5_CUT:]]
+    resumed = collect_sharded_stream_frames(outs_a + outs_b, C5_S, spec, n_t)
+    if sorted(map(c5_key, resumed)) != sorted(map(c5_key, frames)):
+        raise AssertionError("config 5: the resumed frames differ")
+    times = chunk_times(ex.push, chunks[:C5_CHUNKS])
+    log(f"shard (b) config 5, {C5_CHANS} channels on {n_c}x{n_t}: all "
+        f"{len(frames)} frames once on their channels (payload, crc_ok, start "
+        f"within {C5_SLACK}), equal to the 1x1 mesh's and "
+        f"wideband_rx_block({C5_CHANS})'s; checkpoint after chunk "
+        f"{C5_CUT - 1} resumed exactly; {n_c * n_t} pfb, sc_detect and "
+        f"gather launches a chunk; per 2^{BLOCK.bit_length() - 1} chunk wall "
+        f"{times['wall_ms']:.3f} ms, busy {times['busy_ms']:.3f} ms (one "
+        f"card stepping through {n_c * n_t} logical shards: not a scaling "
+        "figure)")
+    return {"frames": len(frames), **times, "errors": errs}, chunks
+
+
+def shard_nccl(dev, chunk: torch.Tensor) -> None:
+    """(c) config 5's first chunk through a world-size-1 NCCL group at 1x1,
+    against the local 1x1; the runtime's collectives in that group."""
+    with tempfile.TemporaryDirectory() as d:
+        shard_dist.initialize(f"file://{d}/rendezvous", 1, 0, device=dev)
+        try:
+            mesh = shard_dist.global_mesh(1, 1)
+            if type(mesh.comm) is not shard_dist.DistComm:
+                raise AssertionError("nccl: global_mesh is not distributed")
+            a = c5_executor(mesh, dev, 2 * C5_S, 8).push(chunk)
+            b = c5_executor(make_mesh(1, 1, devices=[dev]), dev, 2 * C5_S,
+                            8).push(chunk)
+            diffs = replay_diffs([a], [b])
+            if diffs:
+                raise AssertionError(f"nccl 1x1 vs local 1x1: {diffs[:5]}")
+            stacked = shard_dist.LinkCounters(*(
+                torch.full((1,), float(i + 1), device=dev) for i in range(6)))
+            m = shard_dist.metrics_from_counters(
+                shard_dist.psum_tree(stacked, mesh))
+            psd = torch.rand((16, 64), device=dev)
+            g = shard_dist.all_gather_spectrum(psd, mesh)
+            msg = {"cmd": "retune", "freq": 146.52e6}
+            hb = shard_dist.MeshHeartbeat(mesh)
+            beats = [hb.beat(1).tolist(), hb.beat(2).tolist()]
+            ok = (m["frames_detected"] == 1 and m["samples"] == 6
+                  and torch.equal(g, psd)
+                  and shard_dist.broadcast_control(msg) == msg
+                  and beats == [[1], [2]] and hb.stalled == [])
+            if not ok:
+                raise AssertionError(f"nccl collectives: {m}, {beats}")
+            n_leaves = len(list(named_leaves(a)))
+            backend = torch.distributed.get_backend()
+        finally:
+            torch.distributed.destroy_process_group()
+    log(f"shard (c) {backend} world size 1 at 1x1: all {n_leaves} output "
+        "leaves bit-identical to the local 1x1; psum_tree, "
+        "all_gather_spectrum, broadcast_control and MeshHeartbeat in the "
+        "group")
+
+
+def shard_analyzer(dev, counts: collections.Counter) -> None:
+    """(d) spectrum_analyzer mesh on a 2x2 mesh of this card: to a
+    SpectrumSubscriber (the tone's bin in each frame), then to the remote
+    app over loopback UDP; psd and pfb launched once a shard a step in
+    both runs."""
+    n_blocks = int(MESH_ANALYZER[MESH_ANALYZER.index("--blocks") + 1])
+    mesh = ["mesh", *MESH_ANALYZER, "--device", str(dev), "--port"]
+
+    def run(port: int, what: str):
+        reset_launches("psd", "pfb")
+        rc = spectrum_analyzer.main(mesh + [str(port)])
+        launches = read_launches(what, "psd", "pfb")
+        if rc or set(launches.values()) != {4 * n_blocks}:
+            raise AssertionError(f"{what}: rc {rc}, {launches} in {n_blocks}"
+                                 " steps, want 4 each a step")
+        counts.update(launches)
+
+    sub = SpectrumSubscriber(bind_port=0)
+    try:
+        with shard_inputs("psd", "pfb") as seen:
+            run(sub.port, "spectrum_analyzer mesh")
+        frames = [sub.receive(timeout=5.0) for _ in range(3)]
+    finally:
+        sub.close()
+    errs = check_shard_inputs(seen, "spectrum_analyzer mesh 2x2")
+    peaks = [int(np.argmax(fr.avg_db)) for fr in frames if fr is not None]
+    if len(peaks) != 3 or any(abs(p - MESH_ANALYZER_BIN) > 1 for p in peaks):
+        raise AssertionError(f"spectrum_analyzer mesh: peak bins {peaks}, "
+                             f"want {MESH_ANALYZER_BIN} +- 1")
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        t, box = in_thread(spectrum_analyzer.main, [
+            "remote", "--port", "0", "--frames", "3", "--timeout", "20",
+            "--width", "64"])
+        port = bound_port(err, t, "spectrum_analyzer remote")
+        run(port, "spectrum_analyzer mesh -> remote")
+        t.join(30)
+    lines = [s for s in out.getvalue().splitlines() if "MHz" in s]
+    if t.is_alive() or box.get("rc") != 0 or len(lines) != 3:
+        raise AssertionError(f"spectrum_analyzer mesh -> remote: remote "
+                             f"{box}, printed {lines}")
+    log(f"shard (d) spectrum_analyzer mesh 2x2 on the card: peak bins {peaks}"
+        f" (want {MESH_ANALYZER_BIN} +- 1), 4 psd and 4 pfb launches a step "
+        f"in both runs; remote printed {lines[0]!r}")
+    return errs
+
+
+def phase_shard(dev, tag: str) -> dict:
+    """The multi-device layer on meshes that repeat this card."""
+    counts = collections.Counter()
+    head = shard_headline(dev, counts)
+    c5, chunks = shard_config5(dev, counts)
+    shard_nccl(dev, chunks[0])
+    del chunks
+    errs = {}
+    for e in (head.pop("errors"), c5.pop("errors"),
+              shard_analyzer(dev, counts)):
+        for name, err in e.items():
+            errs[name] = max(err, errs.get(name, 0.0))
+    log(f"shard (e) {dryrun_multichip(8, dev)}")
+    log(f"shard: launches over the phase {dict(counts)}; each kernel against"
+        f" its plain version on a shard's inputs, max abs err {errs}  [{tag}]")
+    return {"launches": dict(counts), "errors": errs,
+            "headline_1x4": head, "config5": c5}
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2427,7 +2933,8 @@ def main():
             phase_spectrum(dev, smi), phase_scan(dev, smi),
             phase_radio(dev, smi), phase_sync(dev, smi),
             phase_flowgraph(dev, smi, main_run["msamples_per_s"]),
-            phase_ingest(dev, smi, main_run["msamples_per_s"])]
+            phase_ingest(dev, smi, main_run["msamples_per_s"]),
+            phase_shard(dev, smi)]
     report = []
     for name, res in kernels.items():
         source, replaces = SOURCES[name]
@@ -2435,7 +2942,10 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(r["launches"].get(name, 0) for r in runs),
-            **res, "share": res["bound_ms"] / res["ms"]})
+            **res, "share": res["bound_ms"] / res["ms"],
+            # phase 12 also holds the kernels to their plain versions
+            "max_abs_err": max([res["max_abs_err"]] + [
+                r.get("errors", {}).get(name, 0.0) for r in runs])})
     log(json.dumps({"kernels": report}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

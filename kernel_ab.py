@@ -1,6 +1,6 @@
-"""Time the port's gather, scan, sc_metric and psd kernels as built from
-other source trees, in turns with this checkout's, in one process on one
-card.
+"""Time the port's sc_detect, gather, scan, sc_metric and psd kernels as
+built from other source trees, in turns with this checkout's, in one
+process on one card.
 
     python3 kernel_ab.py TREE [TREE ...] [--rounds 2] [--out FILE]
 
@@ -10,11 +10,16 @@ tpu_ofdm_torch/csrc | tar -x --strip-components=1 -C TREE`), or a variant
 of a kernel.  Needs one CUDA card and nvcc; imports no JAX.  Every build is
 first held against the plain versions (gather bit for bit, scan at
 chip_smoke.py's one-ulp bar, sc_metric at its bars and the gated form bit
-for bit against the raw one and the torch gate, psd bin by bin; a tree
+for bit against the raw one and the torch gate, psd bin by bin, sc_detect
+by compare_rows; a tree
 that fails is reported and timed all the same), then timed in turns, this
 checkout first and last in each round (A B .. B A), at the shapes of
 chip_smoke.py's `kernels` line:
 
+  detect       sc_detect at fft 64 on [3072 | 2^25] (the headline block)
+               and on 128 channels of [1024 | 32768] of config 5's first
+               chunk channelized at 512 (its frames ~1e5 over the channel
+               noise), warm
   gather       K 480, F 2000 over [3072 | 2^25] across the seam, warm and
                cold (chip_smoke.cuda_ms / cold_ms)
   gather_x     the same windows' contiguous form, over the 2^25 block alone
@@ -37,15 +42,19 @@ import argparse
 import json
 import pathlib
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
 from tpu_ofdm_torch.kernels import build
 from tpu_ofdm_torch.kernels import gather as kgather
+from tpu_ofdm_torch.kernels import sc_detect as kdetect
 from tpu_ofdm_torch.kernels import psd as kpsd
 from tpu_ofdm_torch.kernels import sc_metric as kmetric
 from tpu_ofdm_torch.kernels import scan as kscan
+from tpu_ofdm_torch.kernels.build import complex_ptr
 from tpu_ofdm_torch.modem.rx_stream import history_len
+from tpu_ofdm_torch.spectrum.channelizer import channelize, lowpass_taps
 
 
 def inputs(dev) -> dict:
@@ -65,7 +74,14 @@ def inputs(dev) -> dict:
     p1 = cs.noisy_buffers(1, cs.PSD_BLOCK, seed=22, dev=dev)[0]
     p64 = cs.noisy_buffers(cs.WB_CHANS, cs.BLOCK // cs.WB_CHANS, seed=23,
                            dev=dev)
+    c5 = channelize(cs.c5_capture(cs.WIDEBAND.spec, dev)[0], cs.C5_CHANS,
+                    lowpass_taps(cs.C5_CHANS, taps_per_arm=cs.C5_TAPS))
+    c5 = c5.t()[:cs.C5_CHANS // cs.C5_MESH[0]]
+    h5, x5 = c5[:, cs.C5_S - 1024:cs.C5_S].contiguous(), \
+        c5[:, cs.C5_S:].contiguous()
     return {
+        "detect_1": ("detect", (x, head), None),
+        "detect_c5": ("detect", (x5, h5), None),
         "metric_1": ("metric", (r1, 32), None),
         "metric_4096": ("metric", (r2, 32), None),
         "gate_1": ("gate", (r1, 32), None),
@@ -87,7 +103,19 @@ GATE_W = 2 * cs.HEADLINE.spec.sym_len + 1
 def runner(lib, kernel: str, args):
     """A call of `lib`'s kernel on `args` into an output of its own; None
     where `lib` has no such entry."""
-    if kernel in ("metric", "gate"):
+    if kernel == "detect":
+        x, head = args
+        h, n = head.shape[-1], x.shape[-1]
+        rows = -(-(h + n) // kdetect.ROW)
+        B = x.shape[0] if x.ndim == 2 else 1
+        out = torch.empty((6, B, rows), dtype=torch.float32, device=x.device)
+
+        def run():
+            lib.launch("sc_detect_launch", x.device, complex_ptr(head), h, h,
+                       complex_ptr(x), n, n, B, 32, 16, out.data_ptr(), rows)
+            o = out.reshape(6, *x.shape[:-1], rows)
+            return (o[0], o[1].view(torch.int32), o[2], o[3], o[4], o[5])
+    elif kernel in ("metric", "gate"):
         r, L = args
         fn = "sc_metric_launch" if kernel == "metric" else \
             "sc_sync_metric_launch"
@@ -147,7 +175,19 @@ def check(name: str, lib, calls: dict) -> None:
         if fn is None:
             continue
         got = fn()
-        if kernel == "gather":
+        if kernel == "detect":
+            x, head = args
+            ref = kdetect.sc_detect_rows_plain(x, 32, 16, head=head)
+            peak = max(x.abs().max().item(), head.abs().max().item())
+            unit = max(1.0, peak / float(np.abs(cs.golden_frame(
+                cs.HEADLINE.spec)).max()))
+            try:
+                cs.compare_rows(got, ref, f"{name}: {what}", unit)
+                ok = True
+            except AssertionError as e:
+                cs.log(f"  {name}: {what}: {str(e).splitlines()[0]}")
+                ok = False
+        elif kernel == "gather":
             ok = torch.equal(got, want)
         elif kernel == "scan":
             ok = cs.scan_ratio(got, args[0])[1] <= 1.0
@@ -174,8 +214,9 @@ def check(name: str, lib, calls: dict) -> None:
         cs.log(f"{name}: FAILS its check on {bad}; timed all the same, as a "
                "design that was tried")
     else:
-        cs.log(f"{name}: gather exact, scan, sc_metric and psd within their "
-               "bars, gated sc_metric exact where the tree has it")
+        cs.log(f"{name}: gather exact, sc_detect, scan, sc_metric and psd "
+               "within their bars, gated sc_metric exact where the tree has "
+               "it")
 
 
 def timings(lib, calls: dict) -> dict:
@@ -190,6 +231,8 @@ def timings(lib, calls: dict) -> dict:
         elif kernel in ("metric", "gate"):
             out[what] = cs.cuda_ms(fn, 20)
             out[what + "_cold"] = cs.cold_ms(fn, 10)
+        elif kernel == "detect":
+            out[what] = cs.cuda_ms(fn, 20)
         else:
             out[what] = cs.cuda_ms(fn, 20)
     return out
@@ -201,7 +244,8 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--out")
     ap.add_argument("--only", help="comma-separated prefixes of the timed "
-                    "calls (gather, scan, metric, gate, psd); default all")
+                    "calls (detect, gather, scan, metric, gate, psd); "
+                    "default all")
     args = ap.parse_args()
     smi = cs.phase_device()
     dev = torch.device("cuda", 0)
@@ -214,7 +258,8 @@ def main():
         lines = lib.build_log.splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry" in line and any(
-                    k in line for k in ("gather", "scan", "sc_metric", "psd")):
+                    k in line for k in ("sc_detect", "gather", "scan",
+                                        "sc_metric", "psd")):
                 for info in lines[i:i + 3]:
                     cs.log("  ptxas:", info.strip())
     calls = inputs(dev)

@@ -10,8 +10,10 @@ the CFO-statistics captures, and through the flowgraph layer the headline
 stream as a one-node grc spec, the DDC example (decimate_and_measure at
 run_flowgraph's block of 2^15) and the power meter (2^22), and the
 headline stream read from chip_smoke.py phase 11's i16c capture file
-through FileStreamer and DeviceFeed (read again from its start at its end)
--- and measures, per push:
+through FileStreamer and DeviceFeed (read again from its start at its end),
+and phase 12's sharded cells on meshes that repeat the card (the headline
+stream on 1x4, config 5 at 512 channels on 4x2: one card stepping through
+the shards in turn, not a scaling figure) -- and measures, per push:
 
   wall ms      host clock over three windows of 10 pushes, each ended by
                torch.cuda.synchronize(), without the profiler (min-max)
@@ -173,6 +175,15 @@ def cells(dev):
     with tempfile.TemporaryDirectory() as d:
         paths = cs.write_capture(cs.HEADLINE.spec, dev, pathlib.Path(d))
         yield "ingest_headline", IngestCell(dev, paths), None
+    yield ("sharded_headline_1x4", StreamExecutor(cs.sharded_rx_stream_block(
+        cs.HEADLINE.spec, cs.make_mesh(1, cs.SHARD_T,
+                                       devices=[dev] * cs.SHARD_T),
+        1, cs.BLOCK // cs.SHARD_T, cs.SHARD_K), cs.BLOCK, device=dev),
+        blocks[0:1])
+    n_c, n_t = cs.C5_MESH
+    yield ("sharded_wideband_config5", cs.c5_executor(
+        cs.make_mesh(n_c, n_t, devices=[dev] * (n_c * n_t)), dev),
+        cs.c5_capture(cs.WIDEBAND.spec, dev)[0].clone())
 
 
 def host_windows(ex, x, n=10, windows=3):
@@ -203,12 +214,8 @@ def device_profile(ex, x):
             ex.push(x)
         torch.cuda.synchronize()
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:                  # union of intervals, in us
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = cs.busy_union((e.time_range.start, e.time_range.end)
+                         for e in evs)  # in us
     by_name = collections.Counter()
     for e in evs:
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3

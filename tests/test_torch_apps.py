@@ -340,3 +340,68 @@ def test_port_zero_receiver_announces_its_port(capsys, app):
             [f"[{i}] {m}" for i, m in enumerate(CHAT)]
     else:
         assert len([s for s in out if "MHz" in s]) == 3
+
+
+MESH_CHAN, MESH_BINS = 16, 32
+MESH = ["mesh", "--tone", "0.25", "--noise", "0.01", "--n-chan",
+        str(MESH_CHAN), "--chan-fft-len", str(MESH_BINS), "--block-size",
+        str(MESH_CHAN * MESH_BINS * 8), "--blocks", "30", "--frame-rate",
+        "1000", "--center-freq", "1e6", "--sample-rate", "4e6"]
+
+
+def _mesh_published(main, extra):
+    """The first 2 consensus frames a mesh worker publishes, received by a
+    SpectrumSubscriber of the JAX package (tests/test_apps.py:83-119)."""
+    sub = SpectrumSubscriber(bind_port=0)
+    t, box = _in_thread(main, [*MESH, "--port", str(sub.port), *extra])
+    try:
+        frames = [sub.receive(timeout=30) for _ in range(2)]
+    finally:
+        t.join(timeout=60)
+        sub.close()
+    assert not t.is_alive() and box.get("rc") == 0
+    assert all(fr is not None for fr in frames)
+    return frames
+
+
+@pytest.mark.parametrize("mesh", ["4x2", "1x1"])
+def test_spectrum_analyzer_mesh_publishes_the_jax_consensus(mesh):
+    """mesh -> remote: the JAX app on its 4x2 virtual mesh and the port's
+    on a 4x2 (or 1x1) mesh laid on the CPU (--mesh, --device cpu) publish
+    the same full-band consensus: the first frame (one step, deterministic
+    where the later ones depend on the publish clock) equal in linear power
+    at 1e-4 * max (the psd kernel's bar); the 0.25 fs tone within one bin
+    of 3/4 across the band in every frame; max-hold at or above the
+    average."""
+    want = _mesh_published(j_analyzer.main, [])
+    got = _mesh_published(t_analyzer.main, ["--mesh", mesh, *CPU])
+    g, w = got[0], want[0]
+    assert g.avg_db.shape == w.avg_db.shape == (MESH_CHAN * MESH_BINS,)
+    assert (g.seq, g.n_frames, g.center_freq, g.sample_rate) == \
+        (w.seq, w.n_frames, w.center_freq, w.sample_rate)
+    pg, pw = 10.0 ** (g.avg_db / 10.0), 10.0 ** (w.avg_db / 10.0)
+    np.testing.assert_allclose(pg, pw, rtol=0, atol=1e-4 * pw.max())
+    for fr in got:
+        peak = int(np.argmax(fr.avg_db))
+        assert abs(peak - int(0.75 * MESH_CHAN * MESH_BINS)) <= 1
+        assert peak == int(np.argmax(w.avg_db))
+        assert fr.max_db[peak] >= fr.avg_db[peak] - 1e-3
+
+
+def test_spectrum_analyzer_mesh_to_port_remote(capsys):
+    """The port's remote client (--port 0, named on stderr once bound) fed
+    by the port's mesh worker (2x2 on the CPU): it renders 3 frames, and
+    both return 0."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        t, box = _in_thread(t_analyzer.main, [
+            "remote", "--port", "0", "--frames", "3", "--timeout", "20",
+            "--width", "40"])
+        port = _announced_port(err, t)
+        assert t_analyzer.main([*MESH, "--port", str(port), "--mesh", "2x2",
+                                *CPU]) == 0
+        t.join(timeout=60)
+    assert not t.is_alive() and box.get("rc") == 0
+    assert "consensus frames from a 2x2 mesh" in err.getvalue()
+    lines = [s for s in capsys.readouterr().out.splitlines() if "MHz" in s]
+    assert len(lines) == 3

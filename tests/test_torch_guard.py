@@ -41,11 +41,15 @@ def test_port_imports_without_jax():
         "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') or "
         "m == 'orbax' or m.startswith('orbax.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 59, names\n"
+        "assert len(names) >= 66, names\n"
         "assert {'tpu_ofdm_torch.grc', 'tpu_ofdm_torch.io.sources', "
         "'tpu_ofdm_torch.apps.run_flowgraph', 'tpu_ofdm_torch.stream.graph', "
         "'tpu_ofdm_torch.runtime', 'tpu_ofdm_torch.io.feed', "
-        "'tpu_ofdm_torch.stream.checkpoint'} <= set(names), names\n"
+        "'tpu_ofdm_torch.stream.checkpoint', 'tpu_ofdm_torch.shard', "
+        "'tpu_ofdm_torch.shard.mesh', 'tpu_ofdm_torch.shard.halo', "
+        "'tpu_ofdm_torch.shard.rx', 'tpu_ofdm_torch.shard.wideband', "
+        "'tpu_ofdm_torch.shard.distributed', 'tpu_ofdm_torch.shard.dryrun'} "
+        "<= set(names), names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -107,6 +111,41 @@ def _device_feed():
     return block.device
 
 
+def _make_mesh():
+    from tpu_ofdm_torch.shard import make_mesh
+    return make_mesh().devices[0, 0]
+
+
+def _dryrun():
+    """The device the dry run names for its mesh, with none asked for."""
+    from tpu_ofdm_torch.shard.dryrun import dryrun_multichip
+    line = dryrun_multichip(2)
+    return torch.device(re.search(r"shards on (\S+),", line).group(1))
+
+
+def _global_mesh():
+    """global_mesh over a group the caller brought up itself (gloo, one
+    rank), which initialize() never saw."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tpu_ofdm_torch.shard import distributed as D
+    saved = dict(D._RUNTIME)
+    D._RUNTIME.clear()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            dist.init_process_group("gloo", init_method=f"file://{d}/rdv",
+                                    world_size=1, rank=0)
+            try:
+                return D.global_mesh().devices[0, 0]
+            finally:
+                dist.destroy_process_group()
+    finally:
+        D._RUNTIME.clear()
+        D._RUNTIME.update(saved)
+
+
 def _scan_blocks():
     """A stateless block, whose init names no device, over numpy blocks."""
     from tpu_ofdm_torch.stream import block as B
@@ -117,9 +156,12 @@ def _scan_blocks():
 
 
 @pytest.mark.parametrize("entry", [_executor, _empty_tx_in, _queue_tx_in,
-                                   _apps, _scan_blocks, _device_feed],
+                                   _apps, _scan_blocks, _device_feed,
+                                   _make_mesh, _dryrun, _global_mesh],
                          ids=["StreamExecutor", "empty_tx_in", "queue_tx_in",
-                              "apps", "scan_blocks", "DeviceFeed"])
+                              "apps", "scan_blocks", "DeviceFeed",
+                              "make_mesh", "dryrun_multichip",
+                              "global_mesh"])
 def test_entry_points_default_to_the_card(entry):
     """With no device named, an entry point goes to cuda: where torch has
     no card it raises torch's own error, never falls back to the CPU."""

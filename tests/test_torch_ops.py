@@ -258,3 +258,74 @@ def test_derotate_and_sliding_max():
                     tconfig.OfdmConfig(fft_len=fft_len, cp_len=cp).spec)
                 == jsync.min_frame_gap(
                     jconfig.OfdmConfig(fft_len=fft_len, cp_len=cp).spec))
+
+
+# -- the API options of the JAX functions (threshold=, max_shift=, n0=) -----
+
+
+def _frames_at_snrs(seed, n=40000):
+    """Golden frames at 20 and 8 dB over unit-power noise (peaks near 0.98
+    and 0.76, noise below 0.15), so that the detection threshold decides
+    which of them pass."""
+    rng = np.random.RandomState(seed)
+    gp = G.GoldenOfdmParams(fft_len=64, cp_len=16, modulation="qpsk")
+    x = _cplx(rng, n) * np.float32(np.sqrt(0.5))
+    for i, (pos, snr) in enumerate([(3000, 20.0), (15000, 8.0)]):
+        f = G.tx_frame(gp, bytes(range(20 + i)), frame_num=i)
+        f = f / np.sqrt(np.mean(np.abs(f) ** 2)) * 10 ** (snr / 20)
+        x[pos:pos + len(f)] += f.astype(np.complex64)
+    return x
+
+
+@pytest.mark.parametrize("threshold,n_valid", [(0.05, 8), (0.9, 1), (1.5, 0)])
+def test_detect_frames_threshold_matches_jax(threshold, n_valid):
+    """detect_frames(threshold=) at non-default values: the same
+    detections as the JAX function (the threshold applies in the
+    selection over the row summaries)."""
+    x = _frames_at_snrs(8)
+    got = tsync.detect_frames(TSPEC, torch.as_tensor(x), 8,
+                              threshold=threshold)
+    want = jsync.detect_frames(SPEC, jnp.asarray(x), 8, threshold=threshold)
+    v = _np(want.valid)
+    np.testing.assert_array_equal(got.valid.numpy(), v)
+    np.testing.assert_array_equal(got.start.numpy()[v], _np(want.start)[v])
+    np.testing.assert_allclose(got.fine_cfo.numpy()[v],
+                               _np(want.fine_cfo)[v], rtol=1e-3, atol=1e-4)
+    default = tsync.detect_frames(TSPEC, torch.as_tensor(x), 8)
+    assert int(default.valid.sum()) == 2
+    assert v.sum() == n_valid
+
+
+@pytest.mark.parametrize("max_shift", [1, 2, 6])
+def test_coarse_int_cfo_max_shift_matches_jax(max_shift):
+    """coarse_int_cfo(max_shift=) at non-default values: the JAX search
+    range, so shifts beyond it land on another integer."""
+    rng = np.random.RandomState(9)
+    shifts = np.array([-5, -2, -1, 0, 1, 2, 5], np.int32)
+    sw1 = np.stack([np.roll(SPEC.sync_word1_freq, s) for s in shifts])
+    rx1 = (sw1 + 0.05 * _cplx(rng, len(shifts), 64)).astype(np.complex64)
+    got = tce.coarse_int_cfo(TSPEC, torch.as_tensor(rx1),
+                             max_shift=max_shift).numpy()
+    want = _np(jce.coarse_int_cfo(SPEC, jnp.asarray(rx1),
+                                  max_shift=max_shift))
+    np.testing.assert_array_equal(got, want)
+    inside = np.abs(shifts) <= max_shift
+    np.testing.assert_array_equal(got[inside], shifts[inside])
+
+
+@pytest.mark.parametrize("n0", [37, -1000, "per_row"])
+def test_derotate_n0_matches_jax(n0):
+    """derotate(n0=) at non-default values: an int for every row, or one
+    int32 offset a row (vmapped in JAX)."""
+    rng = np.random.RandomState(10)
+    r = _cplx(rng, 4, 2000)
+    cfo = np.array([-0.49, 0.07, 0.13, 0.5], np.float32)
+    offs = (np.array([0, 5, 1234, 99999], np.int32) if n0 == "per_row"
+            else np.full(4, n0, np.int32))
+    t_n0 = torch.as_tensor(offs) if n0 == "per_row" else n0
+    got = tsync.derotate(torch.as_tensor(r), torch.as_tensor(cfo), 64, n0=t_n0)
+    want = jax.vmap(lambda a, c, o: jsync.derotate(a, c, 64, n0=o))(
+        jnp.asarray(r), jnp.asarray(cfo), jnp.asarray(offs))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4)
+    plain = tsync.derotate(torch.as_tensor(r), torch.as_tensor(cfo), 64)
+    assert not np.allclose(got.numpy(), plain.numpy(), atol=1e-3)

@@ -65,8 +65,9 @@ def _pallas_rows(spec, x):
 
 def _assert_rows_close(got, ref, live_frac=0.99, same_frac=0.95):
     """The tolerances of tests/test_kernels_sc_detect.py: the jnp rows take
-    window sums from one float32 cumsum, the port's plain version from a
-    float64 one, the Pallas kernel from bf16 hi/lo matmuls."""
+    window sums from one float32 cumsum, the port's plain version from
+    float64 sums of each window, the Pallas kernel from bf16 hi/lo
+    matmuls."""
     live = np.isfinite(ref[0])
     assert live.sum() > live_frac * live.size
     np.testing.assert_array_equal(np.isfinite(got[0]), live)
@@ -176,9 +177,11 @@ def test_wrapper_rejects_bad_inputs(bad):
 # in sc_detect_l32_kernel), the same 32-position segments aligned at
 # position 0, a window as its segment's prefix plus the totals of the
 # segments it spans plus the suffix T_a - C_a(i) of the segment where it
-# starts, the values of the chunks before k0 read as zero, R1 and the picks
-# read back, and the W-boxcar of M by the same segment sums.  It must give
-# the plain version's rows at chip_smoke.py's bars (compare_rows).
+# starts (sc_detect_kernel) or plus that suffix summed directly
+# (sc_detect_l32_kernel), the values of the chunks before k0 read as zero,
+# R1 and the picks read back, and the W-boxcar of M by the same segment
+# sums.  It must give the plain version's rows at chip_smoke.py's bars
+# (compare_rows).
 
 CHUNK = 32           # csrc/sc_detect.cu kChunk: one position a lane
 ROWS_PER_WARP = 16   # csrc/sc_detect.cu kRowsPerWarp
@@ -201,7 +204,18 @@ def _chunk_window(C, dist, i):
     return acc + C
 
 
-def _kernel_model_rows(x, L, cp, head=None):
+def _suffix_window(f):
+    """sc_detect_l32_kernel's window of 32 ending at each (chunk, lane): the
+    previous chunk's terms after the same lane, summed as a suffix, plus
+    this chunk's prefix."""
+    S = torch.flip(torch.cumsum(torch.flip(f, [-1]), -1), [-1])
+    E = torch.cat([S[:, 1:], torch.zeros_like(S[:, :1])], -1)
+    return torch.cat([torch.zeros_like(E[:1]), E[:-1]]) + torch.cumsum(f, -1)
+
+
+def _kernel_model_rows(x, L, cp, head=None, suffix=True):
+    """`suffix`: the L = 32 kernel's window as it is; False models the
+    T_a - C_a(i) form it had before, which the any-L kernel keeps."""
     v = x if head is None else torch.cat([head, x])
     nv = v.shape[0]
     W, c = cp + 1, cp - cp // 2
@@ -234,9 +248,11 @@ def _kernel_model_rows(x, L, cp, head=None):
         terms = (b[..., 0] * a[..., 0] + b[..., 1] * a[..., 1],
                  b[..., 0] * a[..., 1] - b[..., 1] * a[..., 0],
                  a[..., 0] ** 2 + a[..., 1] ** 2)
+        l32 = L == CHUNK and cp == 16 and suffix
         Pre, Pim, R2 = (
-            torch.where(live, _chunk_window(
-                torch.where(live, torch.cumsum(f, -1), 0.0), dL, iL), 0.0)
+            torch.where(live, _suffix_window(torch.where(live, f, 0.0)) if l32
+                        else _chunk_window(torch.where(
+                            live, torch.cumsum(f, -1), 0.0), dL, iL), 0.0)
             for f in terms)
         idx = torch.arange(k.shape[0])[:, None]
         R1 = R2[(idx - dL).clamp(min=0), iL]
@@ -299,3 +315,42 @@ def test_kernel_summation_model_matches_plain(fft_len, cp, h):
     np.testing.assert_allclose(cfo[valid], cfo_r[valid], rtol=1e-3,
                                atol=1e-4)
     assert valid.sum() == len(starts)
+
+
+def test_kernel_summation_model_holds_a_channel_beside_a_frame():
+    """Config 5's dynamic range (fft 64): a frame times 512 channels through
+    the 512-channel synthesis filterbank over 0.01-rms noise, channelized
+    again, comes out ~1e5 over the channel noise, and its neighbour channel
+    holds a window just past a strong segment.  The L = 32 kernel's
+    summation (a window's start summed as a suffix) gives the plain rows
+    of channels 20-22 at compare_rows' bars carried to that scale (P and R,
+    products of two samples, at atol 1e-5 * unit^2; M's boxcar at 1e-5);
+    the T_a - C_a(i) form it replaced misses them on the neighbour."""
+    from tpu_ofdm_torch.spectrum.channelizer import (channelize, lowpass_taps,
+                                                     synthesize_bursts)
+    n_chan, per = 512, 6144
+    gp = G.GoldenOfdmParams(fft_len=64, cp_len=16, modulation="qpsk")
+    frame = G.tx_frame(gp, bytes(range(48)), 21).astype(np.complex64)
+    taps = lowpass_taps(n_chan, taps_per_arm=8)
+    wide = synthesize_bursts(n_chan * per, n_chan, [(21, 300, frame * n_chan)],
+                             taps=taps)
+    rng = np.random.RandomState(0)
+    wide += ((rng.randn(wide.size) + 1j * rng.randn(wide.size)) * 0.01).astype(
+        np.complex64)
+    x = channelize(torch.as_tensor(wide), n_chan, taps).t()[20:23]
+    unit = x.abs().max().item() / np.abs(frame).max()
+    assert unit > 1e4
+    ref = tk.sc_detect_rows_plain(x, 32, 16)
+
+    def worst(suffix):
+        """The largest ratio of |model - plain| to its bar."""
+        got = [torch.stack(r) for r in zip(*(
+            _kernel_model_rows(row, 32, 16, suffix=suffix) for row in x))]
+        live = torch.isfinite(ref[0]) & (got[1] == ref[1])
+        return max(((got[i] - ref[i]).abs()
+                    / ((1e-5 if i == 0 else 1e-5 * unit ** 2)
+                       + 1e-4 * ref[i].abs()))[live].max().item()
+                   for i in (0, 2, 3, 4))
+
+    assert worst(True) <= 1.0
+    assert worst(False) > 10.0

@@ -161,5 +161,17 @@ class StreamConfig:
     dtype: str = "complex64"
 
 
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout: axes for channel-parallel (data parallelism over
+    channelizer outputs) and time-parallel (sequence parallelism with
+    overlap-save halos) sharding."""
+
+    channel_axis: str = "channel"
+    time_axis: str = "time"
+    n_channel_shards: int = 1
+    n_time_shards: int = 1
+
+
 def replace(cfg, **kw):
     return dataclasses.replace(cfg, **kw)

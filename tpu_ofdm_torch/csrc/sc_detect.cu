@@ -52,7 +52,15 @@
 // A warp steps a row at a time, lane l holding positions 4l .. 4l+3; a
 // segment prefix is a serial sum over the lane's 4 positions plus a 3-step
 // scan over the segment's 8 lanes, and every value 32 positions back is
-// the same slot 8 lanes back, one shuffle: ~60 shuffles per row.  Its rows
+// the same slot 8 lanes back, one shuffle.  It forms the start of a window
+// as E_a(t - 32), the segment's terms after t - 32 summed by a suffix scan,
+// in place of T_a - C_a(t - 32), and takes the earlier lanes' part of a
+// prefix from the lane before: every partial sum then holds only terms of
+// its window, so its error is a few eps of the window's own magnitudes.
+// Differences of prefixes lost eps times a strong burst next to a quiet
+// window, at a burst's trailing edge: a relative error that grows as the
+// SNR squared.
+// ~75 shuffles per row.  Its rows
 // come through a ring of 8 rows a warp in shared memory, filled by 16-byte
 // cp.async copies, so that ~190 KB per SM are under way without holding
 // registers (two rows a warp read ahead into registers measured slower).
@@ -65,7 +73,9 @@
 // ceil(L/32)+1 segment-local partial sums (each of at most 32 float32
 // terms, to a depth of 7 additions) added once, so its error is within
 // ~(L/32 + 8) eps times the sum of the magnitudes of the terms in the
-// window and the segments at its ends, at any block length.
+// window (sc_detect_l32_kernel) or in the window and the segments at its
+// ends (sc_detect_kernel, which still takes T_a - C_a), at any block
+// length.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -306,19 +316,43 @@ sc_detect_l32_kernel(const float2* __restrict__ head, int h,
       const float y = __shfl_up_sync(kAll, seg, o, 8);
       if (seg_lane >= o) seg += y;
     }
-    const float before = seg - a;
+    // the earlier lanes' sum, taken from the lane before (not seg - a,
+    // which would lose eps * a to a strong term after the slot)
+    float before = __shfl_up_sync(kAll, seg, 1, 8);
+    if (seg_lane == 0) before = 0.f;
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) C[s] += before;
   };
-  // the window of L ending at each slot: the previous segment's suffix
-  // past it, T - C(t - 32), then this segment's prefix
-  auto window = [&](const float (&C)[kSlots], const float (&pC)[kSlots],
-                    float seg, float pseg, float (&out_)[kSlots]) {
-    const float T = __shfl_sync(kAll, tot_prev ? pseg : seg, tot_src);
+  // E of this lane's slots: the sum of the segment's terms after each slot,
+  // summed directly (serial over the later slots, then an exclusive scan
+  // of the later lanes' totals), never as a difference of prefixes
+  auto suffix = [&](const float (&f)[kSlots], float (&E)[kSlots]) {
+    float b = 0.f;
+#pragma unroll
+    for (int s = kSlots - 1; s >= 0; --s) {
+      E[s] = b;
+      b += f[s];
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) {
+      const float y = __shfl_down_sync(kAll, b, o, 8);
+      if (seg_lane + o < 8) b += y;
+    }
+    float after = __shfl_down_sync(kAll, b, 1, 8);
+    if (seg_lane == 7) after = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) E[s] += after;
+  };
+  // the window of L ending at each slot: the previous segment's terms past
+  // t - 32, E(t - 32), then this segment's prefix.  Both parts hold only
+  // terms of the window, so a strong burst just before it costs no
+  // precision (T - C(t - 32) would lose eps * T)
+  auto window = [&](const float (&C)[kSlots], const float (&E)[kSlots],
+                    const float (&pE)[kSlots], float (&out_)[kSlots]) {
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
-      const float back = __shfl_sync(kAll, lag_prev ? pC[s] : C[s], lag_src);
-      out_[s] = (T - back) + C[s];
+      const float back = __shfl_sync(kAll, lag_prev ? pE[s] : E[s], lag_src);
+      out_[s] = back + C[s];
     }
   };
   auto pick = [](const float (&a)[kSlots], int s) {
@@ -328,11 +362,11 @@ sc_detect_l32_kernel(const float2* __restrict__ head, int h,
   for (int i = 0; i < kAhead; ++i) issue(r0 - 1 + i);
   float2 v[kSlots], vp[kSlots];
   fetch(r0 - 1, vp);
-  // the previous row: chunk prefixes, segment sums, P, R2, M prefix
-  float pCre[kSlots] = {}, pCim[kSlots] = {}, pCe[kSlots] = {};
+  // the previous row: segment suffixes, P, R2, M prefix and segment sum
+  float pEre[kSlots] = {}, pEim[kSlots] = {}, pEe[kSlots] = {};
   float pPre[kSlots] = {}, pPim[kSlots] = {}, pR2[kSlots] = {};
   float pCm[kSlots] = {};
-  float psre = 0.f, psim = 0.f, pse = 0.f, psm = 0.f;
+  float psm = 0.f;
   for (int r = r0; r < row1; ++r) {
     fetch(r, v);
 
@@ -348,13 +382,17 @@ sc_detect_l32_kernel(const float2* __restrict__ head, int h,
       vp[s] = v[s];
     }
     float Cre[kSlots], Cim[kSlots], Ce[kSlots], sre, sim, se;
+    float Ere[kSlots], Eim[kSlots], Ee[kSlots];
     prefix(fre, Cre, sre);
     prefix(fim, Cim, sim);
     prefix(fe, Ce, se);
+    suffix(fre, Ere);
+    suffix(fim, Eim);
+    suffix(fe, Ee);
     float Pre[kSlots], Pim[kSlots], R2[kSlots], m[kSlots];
-    window(Cre, pCre, sre, psre, Pre);
-    window(Cim, pCim, sim, psim, Pim);
-    window(Ce, pCe, se, pse, R2);
+    window(Cre, Ere, pEre, Pre);
+    window(Cim, Eim, pEim, Pim);
+    window(Ce, Ee, pEe, R2);
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
       const float r1 = __shfl_sync(kAll, lag_prev ? pR2[s] : R2[s], lag_src);
@@ -407,17 +445,14 @@ sc_detect_l32_kernel(const float2* __restrict__ head, int h,
     }
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
-      pCre[s] = Cre[s];
-      pCim[s] = Cim[s];
-      pCe[s] = Ce[s];
+      pEre[s] = Ere[s];
+      pEim[s] = Eim[s];
+      pEe[s] = Ee[s];
       pPre[s] = Pre[s];
       pPim[s] = Pim[s];
       pR2[s] = R2[s];
       pCm[s] = Cm[s];
     }
-    psre = sre;
-    psim = sim;
-    pse = se;
     psm = sm_seg;
   }
 }

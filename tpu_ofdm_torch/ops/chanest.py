@@ -39,11 +39,14 @@ def _sync2_consts(spec: OfdmSpec, device: torch.device):
             torch.as_tensor(x, device=device))
 
 
-def coarse_int_cfo(spec: OfdmSpec, sync1_fd: torch.Tensor) -> torch.Tensor:
-    """Integer CFO in bins, searched over +-spec.cfg.max_int_cfo, from the
-    received sync word 1 spectrum (..., N) -> int32 (...).  Positive means
-    the RX spectrum is shifted UP; undo it with roll_bins(grid, ic)."""
-    max_shift = spec.cfg.max_int_cfo
+def coarse_int_cfo(spec: OfdmSpec, sync1_fd: torch.Tensor,
+                   max_shift: int | None = None) -> torch.Tensor:
+    """Integer CFO in bins, searched over +-max_shift (default
+    spec.cfg.max_int_cfo), from the received sync word 1 spectrum (..., N)
+    -> int32 (...).  Positive means the RX spectrum is shifted UP; undo it
+    with roll_bins(grid, ic)."""
+    if max_shift is None:
+        max_shift = spec.cfg.max_int_cfo
     refs = _rolled_refs(spec, max_shift, sync1_fd.device)    # (2K+1, N)
     scores = sync1_fd.abs() @ refs.T                         # (..., 2K+1)
     return (torch.argmax(scores, dim=-1) - max_shift).to(torch.int32)

@@ -120,27 +120,34 @@ def detect_frames(
     x: torch.Tensor,
     max_frames: int,
     head: torch.Tensor | None = None,
+    threshold: float | None = None,
 ) -> Detections:
     """Find up to `max_frames` frame starts in the virtual buffer
     [head | x] (complex64, x (n,) and head (h,), or a batch of B buffers,
     x (B, n) and head (B, h); head None for x alone).  Detections come sorted
     by position with a validity mask; positions are virtual coordinates.
     `start` points a few samples inside the CP before sync word 1's FFT
-    window (the golden model's ISI backoff).  The threshold is the spec's
-    sync_threshold."""
+    window (the golden model's ISI backoff).  `threshold` (default: the
+    spec's sync_threshold) applies in the selection over the row summaries,
+    not in the kernel."""
+    if threshold is None:
+        threshold = spec.cfg.sync_threshold
     L = spec.fft_len // 2
     nv = x.shape[-1] + (0 if head is None else head.shape[-1])
     n_sm = nv - 2 * L - spec.cp_len + 1
     rows6 = sc_detect_rows(x, L, spec.cp_len, head=head)
     return _select_from_rows(spec, *rows6, n_sm=n_sm, max_frames=max_frames,
-                             threshold=spec.cfg.sync_threshold)
+                             threshold=threshold)
 
 
 def derotate(r: torch.Tensor, cfo_subcarriers: torch.Tensor,
-             fft_len: int) -> torch.Tensor:
-    """Remove a carrier frequency offset: r[..., n] * exp(-j 2 pi cfo n /
-    N), one float32 cfo per leading index.  The phase is float32, computed
-    in the JAX package's order."""
-    n = torch.arange(r.shape[-1], dtype=torch.float32, device=r.device)
+             fft_len: int, n0: torch.Tensor | int = 0) -> torch.Tensor:
+    """Remove a carrier frequency offset: r[..., n] * exp(-j 2 pi cfo
+    (n + n0) / N), one float32 cfo (and one n0, where n0 is a tensor) per
+    leading index.  The phase is float32, computed in the JAX package's
+    order."""
+    if isinstance(n0, torch.Tensor):
+        n0 = n0.to(torch.float32)[..., None]
+    n = torch.arange(r.shape[-1], dtype=torch.float32, device=r.device) + n0
     ph = ((-2.0 * math.pi) * cfo_subcarriers)[..., None] * n / fft_len
     return r * torch.complex(torch.cos(ph), torch.sin(ph))
