@@ -11,12 +11,12 @@ in order -- any failure raises and the script exits non-zero:
               the paths' shapes and on golden frames; kernel and plain
               times (warm, with the launches queued ahead so that the
               events time the card); rx_block on the card against rx_block
-              on the CPU.  sc_detect (fft 64) also with its frames ~60 dB
-              over the noise; sc_detect and gather also batched over 64
-              channels; gather bit for bit at odd and even F on windows of
-              every class and both parities, and timed cold (L2 flushed
-              before each launch) and per call from the host beside
-              x.unfold(-1, F, 1)[starts]; pfb at 8..512 channels with a
+              on the CPU.  sc_detect (fft 64 and fft 256) also with its
+              frames ~60 dB over the noise; sc_detect and gather also
+              batched over 64 channels; gather bit for bit at odd and even
+              F on windows of every class and both parities, and timed cold
+              (L2 flushed before each launch) and per call from the host
+              beside x.unfold(-1, F, 1)[starts]; pfb at 8..512 channels with a
               two-step tail carry, and the one-shot channelize on the card
               against the CPU; psd at every covered N (16, 32, 64, 128 n1)
               with two windows, bin by bin, on batched inputs with ragged
@@ -124,8 +124,32 @@ in order -- any failure raises and the script exits non-zero:
               and K 4 x 128, pfb at 512 channels on a 2^22-sample piece
               with its halo, psd at N 32 on a shard's 8 x 32768 rows
               (bin by bin against a float64 PSD) and pfb at 16 channels
- 13. report   one JSON line of per-kernel results, the nvidia-smi line, and
-              the final {"ok": true, ...} line
+ 13. configs  BASELINE configs 1-3 (bench/curves.py:49-68, copied here):
+              BPSK at fft 64, QPSK at fft 256 / cp 64 with CFO 1.3
+              subcarriers, 16-QAM at fft 64 over the taps (1, 0,
+              0.35+0.2j, 0, 0.1j) with soft output; each config's golden
+              frame impaired once in float64 by the golden channel and laid
+              448 to a 2^25 block over the noise.  (a) the streaming RX at
+              K 480, 8 timed pushes x 3 trials (phase 4's 24 cut for the
+              time limit): every frame back with payload and crc_ok, starts
+              in the CP (+ the taps' spread), int_cfo + fine_cfo within
+              0.02 of 1.3 at config 2, LLR signs = the wire bits at config
+              3; one sc_detect and one gather a push, the L = 32 kernel at
+              configs 1 and 3 and the any-L kernel at config 2 (counted by
+              form); one push under sync-debug "error"; sc_detect
+              (compare_rows and the selection) and gather (bit for bit) on
+              the second push's exact inputs, timed beside their plain
+              versions, their bounds and x.unfold(-1, F, 1)[starts]; (b)
+              rx_block on [H | 2^25] on the card against the CPU: slots,
+              payloads, CRC and int_cfo identical, starts within 2, EVM at
+              rtol 1e-3, LLRs at atol 1e-4 x their max; (c) the golden RX on
+              16 frames: the card's EVM under 2 x golden + 0.02; (d) the
+              radio loopback at the config (448 PDUs a push, channel_block
+              with its CFO or taps at 25 dB, 30 dB at config 3), every PDU
+              back once, phase 8's gate
+ 14. report   one JSON line of per-kernel results (sc_detect and gather
+              also per config of phase 13), the nvidia-smi line, and the
+              final {"ok": true, ...} line
 """
 
 from __future__ import annotations
@@ -144,6 +168,7 @@ import sys
 import tempfile
 import threading
 import time
+import typing
 import zlib
 
 import numpy as np
@@ -270,6 +295,11 @@ SYNC_CFO = 0.2
 
 def log(*a):
     print(*a, flush=True)
+
+
+def today() -> str:
+    """The UTC date, printed beside a rate."""
+    return time.strftime("%Y-%m-%d", time.gmtime())
 
 
 def golden_frame(spec, payload=MSG, frame_num=0) -> np.ndarray:
@@ -437,9 +467,10 @@ def compare_rows(got, ref, what: str, unit: float = 1.0) -> float:
     return err
 
 
-def check_selection(spec, got, ref, nv, positions, what):
+def check_selection(spec, got, ref, nv, positions, what, slack=0):
     """_select_from_rows on kernel rows and on plain rows must give the
-    same detections, and find every injected frame inside its CP."""
+    same detections, and find every injected frame inside its CP (+
+    `slack`)."""
     n_sm = nv - spec.fft_len - spec.cp_len + 1
     K = len(positions) + 8
     sel = [_select_from_rows(spec, *rows, n_sm=n_sm, max_frames=K,
@@ -455,18 +486,18 @@ def check_selection(spec, got, ref, nv, positions, what):
     starts = sel[0].start[v].cpu().numpy()
     want = np.asarray(positions)
     if len(starts) != len(want) or not np.all(
-            (starts >= want) & (starts <= want + spec.cp_len)):
+            (starts >= want) & (starts <= want + spec.cp_len + slack)):
         raise AssertionError(f"{what}: found {len(starts)} frames, "
                              f"want {len(want)} inside their CPs")
 
 
-def check_sc_detect(spec, x, head, positions, what) -> float:
+def check_sc_detect(spec, x, head, positions, what, slack=0) -> float:
     L = spec.fft_len // 2
     got = kdetect.sc_detect_rows(x, L, spec.cp_len, head=head)
     ref = kdetect.sc_detect_rows_plain(x, L, spec.cp_len, head=head)
     err = compare_rows(got, ref, what)
     nv = x.shape[0] + (0 if head is None else head.shape[0])
-    check_selection(spec, got, ref, nv, positions, what)
+    check_selection(spec, got, ref, nv, positions, what, slack)
     return err
 
 
@@ -489,17 +520,20 @@ def phase_kernels(dev, tag: str) -> list[dict]:
             head = buf[:h].contiguous() if h else None
             check_sc_detect(spec, buf[h:].contiguous(), head, positions,
                             f"sc_detect fft {fft_len} cp {cp} head {h}")
-    # a quiet channel (fft 64): the same frames over 5e-4 rms noise, ~60 dB
-    # under them, so a window just past a frame is ~1e6 times weaker than
-    # the segment before it
-    frame = golden_frame(HEADLINE.spec)
-    positions = list(range(1000, n - 2 * len(frame), n // 24))
-    quiet = noisy_buffers(1, n, seed=65, dev=dev) * 0.025
-    add_frames(quiet, frame, positions)
-    check_sc_detect(HEADLINE.spec, quiet[0, 3072:].contiguous(),
-                    quiet[0, :3072].contiguous(), positions,
-                    "sc_detect fft 64 cp 16 head 3072, frames ~60 dB over "
-                    "the noise")
+    # a quiet channel: the same frames over 5e-4 rms noise, ~60 dB under
+    # them, so a window just past a frame is ~1e6 times weaker than the
+    # segment before it; at fft 64 (the L = 32 kernel) and fft 256 (the
+    # any-L kernel)
+    for fft_len, cp in [(64, 16), (256, 64)]:
+        spec = OfdmConfig(fft_len=fft_len, cp_len=cp, modulation="qpsk").spec
+        frame = golden_frame(spec)
+        positions = list(range(1000, n - 2 * len(frame), n // 24))
+        quiet = noisy_buffers(1, n, seed=fft_len + 1, dev=dev) * 0.025
+        add_frames(quiet, frame, positions)
+        check_sc_detect(spec, quiet[0, 3072:].contiguous(),
+                        quiet[0, :3072].contiguous(), positions,
+                        f"sc_detect fft {fft_len} cp {cp} head 3072, frames "
+                        "~60 dB over the noise")
 
     # the headline shape: [3072-sample history | 2^25 block], 448 frames
     spec = HEADLINE.spec
@@ -1082,10 +1116,12 @@ def tone(n: int, k: int, period: int, dev, amp: float = 1.0) -> torch.Tensor:
 
 # -- 4. main path --------------------------------------------------------------
 
-def staged_blocks(spec, n_blocks, dev, seed=0):
+def staged_blocks(spec, n_blocks, dev, seed=0, frame=None):
     """Blocks laid out as bench.py lays them: FRAMES_PER_BLOCK golden frames
-    at identical offsets in every block, over noise."""
-    frame = golden_frame(spec)
+    (or copies of `frame`) at identical offsets in every block, over
+    noise."""
+    if frame is None:
+        frame = golden_frame(spec)
     gap = (BLOCK - 2 * len(frame)) // FRAMES_PER_BLOCK
     assert gap > len(frame), "frames would overlap"
     pos = [100 + j * gap for j in range(FRAMES_PER_BLOCK)]
@@ -1103,18 +1139,24 @@ def phase_main(dev, tag: str) -> dict:
 
 
 def headline_trials(ex, blocks, pos, what: str, tag: str) -> dict:
-    """The headline stream through `ex`: a warm-up, then 3 timed trials of
-    N_TIMED pushes from a reset carry, each ending with a readback; one
+    """The headline stream through `ex` (stream_trials at N_TIMED pushes)."""
+    return stream_trials(ex, HEADLINE.spec, blocks, pos, MSG, N_TIMED, what,
+                         tag)[0]
+
+
+def stream_trials(ex, spec, blocks, pos, msg: bytes, n_timed: int,
+                  what: str, tag: str, slack: int = 0):
+    """A stream of `blocks` through `ex`: a warm-up, then 3 timed trials of
+    n_timed pushes from a reset carry, each ending with a readback; one
     sc_detect and one gather launch per push; one more push under sync
-    debug "error"; every frame back with its payload, crc_ok and a start
-    inside its CP."""
-    spec = HEADLINE.spec
+    debug "error"; every frame back with payload `msg`, crc_ok and a start
+    inside its CP (+ `slack`).  Returns (result, the first trial's frames)."""
     H = history_len(spec)
 
     def trial():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs = [ex.push(blocks[i % len(blocks)]) for i in range(N_TIMED)]
+        outs = [ex.push(blocks[i % len(blocks)]) for i in range(n_timed)]
         n_frames = int(torch.stack([o.result.valid.sum() for o in outs])
                        .sum().item())
         return time.perf_counter() - t0, n_frames, outs
@@ -1124,9 +1166,10 @@ def headline_trials(ex, blocks, pos, what: str, tag: str) -> dict:
     reset_launches("sc_detect", "gather")
     results = [trial() for _ in range(3)]
     launches = read_launches(what, "sc_detect", "gather")
-    if set(launches.values()) != {3 * N_TIMED}:
+    forms = dict(kdetect.sc_detect_rows.forms)
+    if set(launches.values()) != {3 * n_timed}:
         raise AssertionError(f"{what}: {launches} launches in "
-                             f"{3 * N_TIMED} pushes, want one each a push")
+                             f"{3 * n_timed} pushes, want one each a push")
     # a step must enqueue without waiting on the host: any synchronizing
     # call inside push() raises in this mode
     torch.cuda.set_sync_debug_mode("error")
@@ -1138,35 +1181,39 @@ def headline_trials(ex, blocks, pos, what: str, tag: str) -> dict:
 
     dt = min(r[0] for r in results)
     n_frames = results[0][1]
-    expect = FRAMES_PER_BLOCK * N_TIMED
+    expect = FRAMES_PER_BLOCK * n_timed
     tail = -(-H * FRAMES_PER_BLOCK // BLOCK) + 1
     if not expect - tail <= n_frames <= expect:
         raise AssertionError(f"{what}: recovered {n_frames} frames, expect "
                              f"{expect}")
 
     frames = collect_frames(results[0][2], block_size=BLOCK, hist=H)
-    want = [i * BLOCK + p for i in range(N_TIMED) for p in pos]
+    want = [i * BLOCK + p for i in range(n_timed) for p in pos]
     got = [f["abs_start"] for f in frames]
     bad = [f for f in frames
-           if f["payload"] != MSG or not f["crc_ok"] or not f["hdr_ok"]]
+           if f["payload"] != msg or not f["crc_ok"] or not f["hdr_ok"]]
     if len(frames) != n_frames or bad:
         raise AssertionError(f"{what}: {len(bad)} frames with a wrong "
                              f"payload or CRC, first {bad[:1]}")
     off = np.asarray(got) - np.asarray(want[: len(got)])
-    if not np.all((off >= 0) & (off <= spec.cp_len)):
-        raise AssertionError(f"{what}: detected starts off their frames' CPs")
+    if not np.all((off >= 0) & (off <= spec.cp_len + slack)):
+        raise AssertionError(f"{what}: detected starts off their frames' CPs"
+                             f" (offsets {off.min()} .. {off.max()})")
 
-    sps = N_TIMED * BLOCK / dt
+    sps = n_timed * BLOCK / dt
     log(f"{what}: {n_frames}/{expect} frames, payload + crc_ok all good; "
+        f"starts {off.min()} .. {off.max()} into their frames; "
         f"trials {[round(r[0], 4) for r in results]} s; "
-        f"{sps / 1e6:.1f} Msamples/s  [{tag}]")
+        f"{sps / 1e6:.1f} Msamples/s on {today()}  [{tag}]")
     return {"msamples_per_s": sps / 1e6, "frames": n_frames,
-            "launches": launches}
+            "launches": launches, "forms": forms}, frames
 
 
 def reset_launches(*names):
     for name in names:
         WRAPPERS[name].launches = 0
+        for form in getattr(WRAPPERS[name], "forms", ()):
+            WRAPPERS[name].forms[form] = 0
 
 
 def read_launches(path: str, *names) -> dict:
@@ -1405,7 +1452,8 @@ def radio_trial(ex, chan, inputs, empty, dev):
     return time.perf_counter() - t0, outs
 
 
-def check_loopback(outs, pdus, soft: bool, what: str) -> int:
+def check_loopback(outs, pdus, soft: bool, what: str,
+                   spec=HEADLINE.spec) -> int:
     """Every queued PDU was accepted and came back exactly once, in order,
     with its payload, frame number and crc_ok; with soft output, the LLR
     signs of every frame equal its wire bits (payload + CRC32)."""
@@ -1414,7 +1462,7 @@ def check_loopback(outs, pdus, soft: bool, what: str) -> int:
         raise AssertionError(f"{what}: TX refused a PDU or accepted an "
                              "empty slot")
     frames = collect_frames([o.rx for o in outs], block_size=BLOCK,
-                            hist=history_len(HEADLINE.spec))
+                            hist=history_len(spec))
     want = [(m, (i * RADIO_PDUS + k) % 4096)
             for i, msgs in enumerate(pdus) for k, m in enumerate(msgs)]
     got = [(f["payload"], f["frame_num"]) for f in frames]
@@ -1424,26 +1472,31 @@ def check_loopback(outs, pdus, soft: bool, what: str) -> int:
         raise AssertionError(f"{what}: {len(got)} frames back for "
                              f"{len(want)} PDUs, first mismatch at {bad}")
     if soft:
-        for f in frames:
-            wire = f["payload"] + zlib.crc32(f["payload"]).to_bytes(4, "little")
-            bits = np.unpackbits(np.frombuffer(wire, np.uint8))
-            if not np.array_equal(f["llr"] < 0, bits.astype(bool)):
-                raise AssertionError(f"{what}: LLR signs differ from the "
-                                     f"bits of frame {f['frame_num']}")
+        check_llr_signs(frames, what)
     return len(frames)
 
 
-def radio_executor(dev, **options) -> StreamExecutor:
-    """The radio at the headline spec; options go to ofdm_radio."""
+def check_llr_signs(frames, what: str) -> None:
+    """Every frame's LLR signs equal its wire bits (payload + CRC32)."""
+    for f in frames:
+        wire = f["payload"] + zlib.crc32(f["payload"]).to_bytes(4, "little")
+        bits = np.unpackbits(np.frombuffer(wire, np.uint8))
+        if not np.array_equal(f["llr"] < 0, bits.astype(bool)):
+            raise AssertionError(f"{what}: LLR signs differ from the "
+                                 f"bits of frame {f['frame_num']}")
+
+
+def radio_executor(dev, spec=HEADLINE.spec, **options) -> StreamExecutor:
+    """The radio at `spec` (the headline's by default); options go to
+    ofdm_radio."""
     sc = StreamConfig(block_size=BLOCK, max_frames_per_block=SLOTS)
-    return StreamExecutor(ofdm_radio(HEADLINE.spec, sc, **options), BLOCK,
-                          device=dev)
+    return StreamExecutor(ofdm_radio(spec, sc, **options), BLOCK, device=dev)
 
 
-def radio_channel(dev) -> StreamExecutor:
-    return StreamExecutor(channel_block(seed=91, snr_db=RADIO_SNR,
-                                        cfo=RADIO_CFO,
-                                        fft_len=HEADLINE.spec.fft_len),
+def radio_channel(dev, snr_db=RADIO_SNR, cfo=RADIO_CFO,
+                  fft_len=HEADLINE.spec.fft_len, taps=None) -> StreamExecutor:
+    return StreamExecutor(channel_block(seed=91, snr_db=snr_db, cfo=cfo,
+                                        fft_len=fft_len, taps=taps),
                           BLOCK, device=dev)
 
 
@@ -2557,6 +2610,8 @@ def shard_inputs(*names, call: int = 1):
                 fn.launches += spy.launches
                 spy.launches = 0
         spy.launches = 0
+        if hasattr(fn, "forms"):      # sc_detect's counts by kernel form
+            spy.forms = fn.forms
         return spy
 
     for name in names:
@@ -2923,6 +2978,273 @@ def phase_shard(dev, tag: str) -> dict:
             "headline_1x4": head, "config5": c5}
 
 
+# -- 13. BASELINE configs 1-3 -------------------------------------------------
+
+class Baseline(typing.NamedTuple):
+    """A BASELINE.json configuration as bench/curves.py:49-68 makes it."""
+    name: str
+    cfg: OfdmConfig
+    cfo: float = 0.0          # subcarriers, from each frame's first sample
+    taps: tuple | None = None  # multipath FIR, taps[0] the line of sight
+    output: str = "hard"
+    radio_snr: float = 25.0   # dB, the loopback's channel (d)
+
+
+BASELINES = (
+    Baseline("config1_bpsk64_awgn",
+             OfdmConfig(fft_len=64, cp_len=16, modulation="bpsk",
+                        max_payload_bytes=64)),
+    Baseline("config2_qpsk256_cfo",
+             OfdmConfig(fft_len=256, cp_len=64, modulation="qpsk",
+                        max_payload_bytes=256), cfo=1.3),
+    # 30 dB in (d): bench/results_curves.json reaches FER 0 at 20 dB
+    Baseline("config3_qam16_multipath_soft",
+             OfdmConfig(fft_len=64, cp_len=16, modulation="qam16",
+                        max_payload_bytes=64),
+             taps=(1.0, 0.0, 0.35 + 0.2j, 0.0, 0.1j), output="soft",
+             radio_snr=30.0),
+)
+CONFIG_TIMED = 8         # pushes a trial: phase 4's 24, cut for the time limit
+CONFIG_ORACLE = 16       # frames a config through the golden RX (c)
+CONFIG_CFO_TOL = 0.02    # int_cfo + fine_cfo against the applied CFO
+
+
+def baseline_payload(spec, k: int) -> bytes:
+    """The largest payload a frame of `spec` carries (max_payload_bytes
+    less the CRC32), bytes made from k."""
+    return bytes((37 * k + 11 * i) % 256
+                 for i in range(spec.max_payload_bytes - 4))
+
+
+def baseline_frame(bc: Baseline, payload: bytes) -> np.ndarray:
+    """The config's golden frame through the golden channel once, in
+    float64: the taps, then the CFO from the frame's first sample."""
+    spec = bc.cfg.spec
+    gp = G.GoldenOfdmParams(fft_len=spec.fft_len, cp_len=spec.cp_len,
+                            modulation=spec.modulation)
+    taps = None if bc.taps is None else np.asarray(bc.taps, np.complex128)
+    frame = G.tx_frame(gp, payload, 0).astype(np.complex128)
+    return G.channel(frame, cfo=bc.cfo, fft_len=spec.fft_len,
+                     multipath=taps).astype(np.complex64)
+
+
+def delay_spread(bc: Baseline) -> int:
+    return 0 if bc.taps is None else len(bc.taps) - 1
+
+
+def check_block_on_cpu(bc: Baseline, x, head, what: str):
+    """(b) rx_block on [head | x] on the card against the same call on the
+    CPU: valid slots, payloads, payload_len, frame_num, crc_ok and int_cfo
+    identical, starts within 2, EVM at rtol 1e-3, LLRs at atol 1e-4 times
+    their largest magnitude.  Returns the card's result."""
+    spec = bc.cfg.spec
+    card = rx_block(spec, x, SLOTS, head=head, output=bc.output)
+    cpu = rx_block(spec, x.cpu(), SLOTS, head=head.cpu(), output=bc.output)
+    v = cpu.valid
+    if not torch.equal(card.valid.cpu(), v):
+        raise AssertionError(f"{what}: card and CPU disagree on valid slots")
+    if int(v.sum()) != FRAMES_PER_BLOCK:
+        raise AssertionError(f"{what}: {int(v.sum())} frames on the CPU, "
+                             f"want {FRAMES_PER_BLOCK}")
+    fc = card.frames
+    fh = cpu.frames
+    for name in ("payload", "payload_len", "frame_num", "crc_ok", "int_cfo"):
+        if not torch.equal(getattr(fc, name).cpu()[v], getattr(fh, name)[v]):
+            raise AssertionError(f"{what}: card and CPU disagree on {name}")
+    if (card.starts.cpu()[v] - cpu.starts[v]).abs().max() > 2:
+        raise AssertionError(f"{what}: starts differ by more than 2")
+    torch.testing.assert_close(fc.evm.cpu()[v], fh.evm[v], rtol=1e-3,
+                               atol=0, msg=lambda m: f"{what} EVM: {m}")
+    llr_err = 0.0
+    if bc.output == "soft":
+        a, b = fc.llr.cpu()[v], fh.llr[v]
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale,
+                                   msg=lambda m: f"{what} LLRs: {m}")
+        if not torch.equal(a > 0, b > 0):
+            raise AssertionError(f"{what}: LLR signs differ")
+        llr_err = (a - b).abs().max().item() / scale
+    log(f"  {what}: rx_block card vs CPU on 2^25 + {head.shape[0]}: "
+        f"{int(v.sum())} frames agree, fine CFO max diff "
+        f"{(card.fine_cfo.cpu()[v] - cpu.fine_cfo[v]).abs().max().item():.3g}"
+        + (f", LLRs within {llr_err:.3g} of their max" if llr_err else ""))
+    return card
+
+
+def check_golden_evm(bc: Baseline, x, card, positions, H: int, what: str):
+    """(c) the golden RX on the first CONFIG_ORACLE frames of x, each with
+    its surroundings: the port's EVM on the card must stay under 2 x the
+    golden EVM + 0.02 (tests/test_curves.py:45-46).  Returns both means."""
+    spec = bc.cfg.spec
+    gp = G.GoldenOfdmParams(fft_len=spec.fft_len, cp_len=spec.cp_len,
+                            modulation=spec.modulation)
+    v = card.valid.cpu()
+    starts = card.starts.cpu()[v].numpy()
+    evm = card.frames.evm.cpu()[v].numpy()
+    span = spec.max_frame_len + 2 * spec.sym_len
+    mine, gold = [], []
+    for p in positions[:CONFIG_ORACLE]:
+        hit = np.nonzero((starts >= p + H)
+                         & (starts <= p + H + spec.cp_len + delay_spread(bc)))
+        if len(hit[0]) != 1:
+            raise AssertionError(f"{what}: no card frame at {p}")
+        mine.append(float(evm[hit[0][0]]))
+        lo = max(0, p - 500)
+        r = x[lo:p + span].cpu().numpy().astype(np.complex128)
+        g = G.rx_frame(gp, r)
+        if g is None or not g["crc_ok"]:
+            raise AssertionError(f"{what}: the golden RX lost the frame at "
+                                 f"{p}")
+        gold.append(g["evm"])
+    port, ref = float(np.mean(mine)), float(np.mean(gold))
+    if not port < 2.0 * ref + 0.02:
+        raise AssertionError(f"{what}: EVM {port:.4g} against the golden "
+                             f"{ref:.4g}")
+    log(f"  {what}: EVM on the card {port:.5f} (mean of "
+        f"{len(mine)} frames), golden RX {ref:.5f}; bar {2 * ref + 0.02:.5f}")
+    return {"evm": port, "golden_evm": ref}
+
+
+def gather_yardstick(x, starts, F: int, head, what: str, tag: str) -> dict:
+    """gather on the path's windows: the kernel against its plain version
+    (bit for bit), warm ms beside the plain version's and the bound; and
+    beside x.unfold(-1, F, 1)[starts] on the same windows of x alone."""
+    H = 0 if head is None else head.shape[-1]
+    got = kgather.gather_windows(x, starts, F, head=head)
+    if not torch.equal(got, kgather.gather_windows_plain(x, starts, F,
+                                                         head=head)):
+        raise AssertionError(f"{what}: kernel differs from plain version")
+    ms = cuda_ms(lambda: kgather.gather_windows(x, starts, F, head=head), 50)
+    cold = cold_ms(lambda: kgather.gather_windows(x, starts, F, head=head),
+                   GATHER_COLD_REPS)
+    plain = cuda_ms(lambda: kgather.gather_windows_plain(x, starts, F,
+                                                         head=head), 10)
+    K = starts.shape[-1]
+    b = bound(8 * window_union(starts.cpu().numpy(), F) + 4 * K + 8 * K * F,
+              0)
+    sx = (starts - H).clamp(0, x.shape[-1] - F).contiguous()
+    idx = sx.long()
+    if not torch.equal(kgather.gather_windows(x, sx, F),
+                       x.unfold(-1, F, 1)[idx]):
+        raise AssertionError(f"{what}: kernel differs from x.unfold(...)")
+    ms_x = cuda_ms(lambda: kgather.gather_windows(x, sx, F), 50)
+    lib = cuda_ms(lambda: x.unfold(-1, F, 1)[idx], 50)
+    log(f"  {what}: gather K {K} F {F} exact; kernel {ms:.4f} ms warm "
+        f"(its windows fit in the L2), {cold:.4f} cold, plain {plain:.4f}; "
+        f"on x alone kernel {ms_x:.4f}, x.unfold(-1, F, 1)[starts] "
+        f"{lib:.4f} ms  [{tag}]")
+    log_bound(f"{what}: gather K {K} F {F} cold", cold, b)
+    return {"F": F, "ms": ms, "cold_ms": cold, "plain_ms": plain, **b,
+            "share": b["bound_ms"] / ms, "cold_share": b["bound_ms"] / cold,
+            "ms_x": ms_x, "library_ms": lib}
+
+
+def config_stream(bc: Baseline, k: int, dev, tag: str) -> dict:
+    """(a) the streaming RX at the config, then (b), (c) and each kernel
+    on (a)'s inputs."""
+    spec = bc.cfg.spec
+    H = history_len(spec)
+    L = spec.fft_len // 2
+    slack = delay_spread(bc)
+    payload = baseline_payload(spec, k)
+    blocks, pos = staged_blocks(spec, 4, dev, seed=30 + k,
+                                frame=baseline_frame(bc, payload))
+    sc = StreamConfig(block_size=BLOCK, max_frames_per_block=SLOTS)
+    ex = StreamExecutor(rx_stream_block(spec, sc, output=bc.output), BLOCK,
+                        device=dev)
+    res, frames = stream_trials(ex, spec, blocks, pos, payload, CONFIG_TIMED,
+                                bc.name, tag, slack)
+    form = kdetect.kernel_form(L, spec.cp_len)
+    want = {f: 3 * CONFIG_TIMED if f == form else 0 for f in res["forms"]}
+    if res["forms"] != want:
+        raise AssertionError(f"{bc.name}: sc_detect kernels launched "
+                             f"{res['forms']}, want {want}")
+    if bc.cfo:
+        est = np.asarray([f["int_cfo"] + f["fine_cfo"] for f in frames])
+        if not np.all(np.abs(est - bc.cfo) <= CONFIG_CFO_TOL):
+            raise AssertionError(f"{bc.name}: CFO estimates {est.min():.4f}"
+                                 f" .. {est.max():.4f}, want {bc.cfo}")
+        log(f"  {bc.name}: int_cfo + fine_cfo {est.min():.4f} .. "
+            f"{est.max():.4f} on {len(est)} frames (CFO {bc.cfo})")
+    if bc.output == "soft":
+        check_llr_signs(frames, bc.name)
+        log(f"  {bc.name}: LLR signs = the wire bits on {len(frames)} frames")
+
+    # the kernels on the exact inputs of (a)'s second push
+    ex.reset()
+    with shard_inputs("sc_detect", "gather", call=1) as seen:
+        ex.push(blocks[0])
+        ex.push(blocks[1])
+    (x, _, _), kw = seen["sc_detect"]
+    head = kw["head"]
+    err = check_sc_detect(spec, x, head, [p + H for p in pos],
+                          f"{bc.name}: sc_detect ({form}) on [{H} | 2^25]",
+                          slack)
+    ms = cuda_ms(lambda: kdetect.sc_detect_rows(x, L, spec.cp_len,
+                                                head=head), 20)
+    plain = cuda_ms(lambda: kdetect.sc_detect_rows_plain(
+        x, L, spec.cp_len, head=head), 3)
+    b = detect_bound(1, H + BLOCK)
+    log(f"  {bc.name}: sc_detect ({form}) at 2^25 + {H}: kernel {ms:.4f} ms,"
+        f" plain {plain:.4f} ms  [{tag}]")
+    log_bound(f"{bc.name}: sc_detect ({form}) at 2^25 + {H}", ms, b)
+    (gx, gstarts, F), gkw = seen["gather"]
+    gat = gather_yardstick(gx, gstarts, F, gkw["head"], bc.name, tag)
+    card = check_block_on_cpu(bc, x, head, bc.name)
+    evm = check_golden_evm(bc, x, card, pos, H, bc.name)
+    return {**res, **evm, "errors": {"sc_detect": err, "gather": 0.0},
+            "sc_detect": {"form": form, "ms": ms, "plain_ms": plain, **b,
+                          "share": b["bound_ms"] / ms},
+            "gather": gat}
+
+
+def config_radio(bc: Baseline, k: int, dev, tag: str) -> dict:
+    """(d) ofdm_radio at the config -> channel_block with its impairments
+    -> RX one push later: phase 8's loopback and gate."""
+    spec = bc.cfg.spec
+    inputs, pdus = radio_traffic(spec, dev, seed=93 + k)
+    empty = empty_tx_in(spec, SLOTS, dev)
+    chan = radio_channel(dev, snr_db=bc.radio_snr, cfo=bc.cfo,
+                         fft_len=spec.fft_len, taps=bc.taps)
+    ex = radio_executor(dev, spec, output=bc.output)
+    radio_trial(ex, chan, inputs, empty, dev)               # warm-up
+    names = ("sc_detect", "gather")
+    reset_launches(*names)
+    dt, outs = radio_trial(ex, chan, inputs, empty, dev)
+    pushes = RADIO_PUSHES + RADIO_DRAIN
+    launches = launches_per_push(f"{bc.name} radio", names, pushes, 1)
+    n = check_loopback(outs, pdus, bc.output == "soft", f"{bc.name} radio",
+                       spec)
+    sps = pushes * BLOCK / dt
+    signs = ", LLR signs = the wire bits" if bc.output == "soft" else ""
+    log(f"{bc.name} radio ({bc.radio_snr:g} dB, CFO {bc.cfo}, taps "
+        f"{bc.taps}, {bc.output}): {n} of {n} PDUs back once with payload "
+        f"and crc_ok{signs}; {dt:.4f} s for {pushes} pushes, "
+        f"{sps / 1e6:.1f} Msamples/s per "
+        f"direction on {today()}  [{tag}]")
+    return {"msamples_per_s": sps / 1e6, "launches": launches}
+
+
+def phase_configs(dev, tag: str) -> dict:
+    """BASELINE configs 1-3 at block 2^25, K 480: (a) the streaming RX,
+    (b) a block on the card against the CPU, (c) the golden RX's EVM, (d)
+    the radio loopback."""
+    counts = collections.Counter()
+    errs, runs = {}, {}
+    for k, bc in enumerate(BASELINES):
+        res = config_stream(bc, k, dev, tag)
+        counts.update(res.pop("launches"))
+        for name, err in res.pop("errors").items():
+            errs[name] = max(err, errs.get(name, 0.0))
+        radio = config_radio(bc, k, dev, tag)
+        counts.update(radio.pop("launches"))
+        runs[bc.name] = {**res, "radio": radio}
+        torch.cuda.empty_cache()
+    log(f"configs: launches over the phase {dict(counts)}; sc_detect kernels"
+        f" by config { {n: r['forms'] for n, r in runs.items()} }  [{tag}]")
+    return {"launches": dict(counts), "errors": errs, "configs": runs}
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2935,6 +3257,8 @@ def main():
             phase_flowgraph(dev, smi, main_run["msamples_per_s"]),
             phase_ingest(dev, smi, main_run["msamples_per_s"]),
             phase_shard(dev, smi)]
+    configs = phase_configs(dev, smi)
+    runs.append(configs)
     report = []
     for name, res in kernels.items():
         source, replaces = SOURCES[name]
@@ -2943,9 +3267,15 @@ def main():
             "replaces": replaces,
             "launches": sum(r["launches"].get(name, 0) for r in runs),
             **res, "share": res["bound_ms"] / res["ms"],
-            # phase 12 also holds the kernels to their plain versions
+            # phases 12 and 13 also hold the kernels to their plain versions
             "max_abs_err": max([res["max_abs_err"]] + [
                 r.get("errors", {}).get(name, 0.0) for r in runs])})
+        if name in ("sc_detect", "gather"):
+            # phase 13: at each BASELINE config's shape, on its inputs
+            report[-1]["configs"] = {
+                c: {**r[name], **({"launches_by_form": r["forms"]}
+                                  if name == "sc_detect" else {})}
+                for c, r in configs["configs"].items()}
     log(json.dumps({"kernels": report}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

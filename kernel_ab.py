@@ -19,7 +19,9 @@ chip_smoke.py's `kernels` line:
   detect       sc_detect at fft 64 on [3072 | 2^25] (the headline block)
                and on 128 channels of [1024 | 32768] of config 5's first
                chunk channelized at 512 (its frames ~1e5 over the channel
-               noise), warm
+               noise); the any-L kernel at fft 256 / cp 64 on chip_smoke.py
+               phase 3's 2^20 buffer of golden frames and on BASELINE
+               config 2's [4096 | 2^25] (phase 13's block), warm
   gather       K 480, F 2000 over [3072 | 2^25] across the seam, warm and
                cold (chip_smoke.cuda_ms / cold_ms)
   gather_x     the same windows' contiguous form, over the 2^25 block alone
@@ -79,9 +81,22 @@ def inputs(dev) -> dict:
     c5 = c5.t()[:cs.C5_CHANS // cs.C5_MESH[0]]
     h5, x5 = c5[:, cs.C5_S - 1024:cs.C5_S].contiguous(), \
         c5[:, cs.C5_S:].contiguous()
+    # the any-L kernel: phase 3's fft-256 buffer, and config 2's block
+    s256 = cs.OfdmConfig(fft_len=256, cp_len=64, modulation="qpsk").spec
+    f256 = cs.golden_frame(s256)
+    n20 = 1 << 20
+    b20 = cs.noisy_buffers(1, n20, seed=256, dev=dev)
+    cs.add_frames(b20, f256, list(range(1000, n20 - 2 * len(f256), n20 // 24)))
+    c2 = cs.BASELINES[1]
+    H2 = history_len(c2.cfg.spec)
+    blocks2, _ = cs.staged_blocks(c2.cfg.spec, 2, dev, seed=31, frame=(
+        cs.baseline_frame(c2, cs.baseline_payload(c2.cfg.spec, 1))))
     return {
-        "detect_1": ("detect", (x, head), None),
-        "detect_c5": ("detect", (x5, h5), None),
+        "detect_1": ("detect", (x, head, 32, 16), None),
+        "detect_c5": ("detect", (x5, h5, 32, 16), None),
+        "detect_256_2^20": ("detect", (b20[0], None, 128, 64), None),
+        "detect_config2": ("detect", (blocks2[0], blocks2[1, -H2:]
+                                      .contiguous(), 128, 64), None),
         "metric_1": ("metric", (r1, 32), None),
         "metric_4096": ("metric", (r2, 32), None),
         "gate_1": ("gate", (r1, 32), None),
@@ -104,15 +119,15 @@ def runner(lib, kernel: str, args):
     """A call of `lib`'s kernel on `args` into an output of its own; None
     where `lib` has no such entry."""
     if kernel == "detect":
-        x, head = args
-        h, n = head.shape[-1], x.shape[-1]
+        x, head, L, cp = args
+        h, n = (0 if head is None else head.shape[-1]), x.shape[-1]
         rows = -(-(h + n) // kdetect.ROW)
         B = x.shape[0] if x.ndim == 2 else 1
         out = torch.empty((6, B, rows), dtype=torch.float32, device=x.device)
 
         def run():
             lib.launch("sc_detect_launch", x.device, complex_ptr(head), h, h,
-                       complex_ptr(x), n, n, B, 32, 16, out.data_ptr(), rows)
+                       complex_ptr(x), n, n, B, L, cp, out.data_ptr(), rows)
             o = out.reshape(6, *x.shape[:-1], rows)
             return (o[0], o[1].view(torch.int32), o[2], o[3], o[4], o[5])
     elif kernel in ("metric", "gate"):
@@ -176,9 +191,10 @@ def check(name: str, lib, calls: dict) -> None:
             continue
         got = fn()
         if kernel == "detect":
-            x, head = args
-            ref = kdetect.sc_detect_rows_plain(x, 32, 16, head=head)
-            peak = max(x.abs().max().item(), head.abs().max().item())
+            x, head, L, cp = args
+            ref = kdetect.sc_detect_rows_plain(x, L, cp, head=head)
+            peak = max(x.abs().max().item(),
+                       0.0 if head is None else head.abs().max().item())
             unit = max(1.0, peak / float(np.abs(cs.golden_frame(
                 cs.HEADLINE.spec)).max()))
             try:

@@ -3,7 +3,9 @@
     python3 profile_paths.py [--out chiprun_out/profile_paths.json]
 
 Needs one CUDA card and this checkout; imports no JAX.  Builds each cell
-with chip_smoke.py's shapes and inputs -- the headline stream, the config-4
+with chip_smoke.py's shapes and inputs -- the headline stream, the stream
+at BASELINE configs 1-3 (chip_smoke.py phase 13's blocks: BPSK, fft 256
+QPSK with CFO 1.3, 16-QAM over multipath with soft output), the config-4
 wideband receiver, the spectrum probe, logpwrfft and waterfall, the
 512-channel scan, the radio loopback (hard and soft), the sync metric on
 the CFO-statistics captures, and through the flowgraph layer the headline
@@ -59,6 +61,8 @@ from tpu_ofdm_torch.ops.sync import schmidl_cox
 from tpu_ofdm_torch.stream.executor import StreamExecutor
 
 STEPS = 5                # profiled pushes per cell
+CONFIG_CELLS = ("rx_stream_config1", "rx_stream_config2",
+                "rx_stream_config3_soft")   # chip_smoke.BASELINES, in order
 DDC_BLOCK = 1 << 15      # run_flowgraph's default block
 # the port's kernels (csrc/*.cu), as the trace names them
 PORT_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)")
@@ -145,6 +149,14 @@ def cells(dev):
     yield ("rx_stream_headline", StreamExecutor(
         rx_stream_block(cs.HEADLINE.spec, sc), cs.BLOCK, device=dev),
         blocks[0])
+    for k, (name, bc) in enumerate(zip(CONFIG_CELLS, cs.BASELINES)):
+        spec = bc.cfg.spec
+        frame = cs.baseline_frame(bc, cs.baseline_payload(spec, k))
+        block = cs.staged_blocks(spec, 1, dev, seed=30 + k, frame=frame)[0]
+        yield (name, StreamExecutor(rx_stream_block(spec, sc,
+                                                    output=bc.output),
+                                    cs.BLOCK, device=dev), block[0])
+        del block
     yield "wideband_config4", cs.wideband_executor(dev), \
         cs.wideband_capture(dev)
     block = cs.spectrum_blocks(dev)[0]

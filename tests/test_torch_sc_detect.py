@@ -176,12 +176,11 @@ def test_wrapper_rejects_bad_inputs(bad):
 # the same strips (16 rows a warp, after a warm-up from chunk k0: one row
 # in sc_detect_l32_kernel), the same 32-position segments aligned at
 # position 0, a window as its segment's prefix plus the totals of the
-# segments it spans plus the suffix T_a - C_a(i) of the segment where it
-# starts (sc_detect_kernel) or plus that suffix summed directly
-# (sc_detect_l32_kernel), the values of the chunks before k0 read as zero,
-# R1 and the picks read back, and the W-boxcar of M by the same segment
-# sums.  It must give the plain version's rows at chip_smoke.py's bars
-# (compare_rows).
+# segments it spans plus the suffix of the segment where it starts, summed
+# directly (the T_a - C_a(i) form the kernels had before is kept as a
+# foil), the values of the chunks before k0 read as zero, R1 and the picks
+# read back, and the W-boxcar of M by the same segment sums.  It must give
+# the plain version's rows at chip_smoke.py's bars (compare_rows).
 
 CHUNK = 32           # csrc/sc_detect.cu kChunk: one position a lane
 ROWS_PER_WARP = 16   # csrc/sc_detect.cu kRowsPerWarp
@@ -204,6 +203,22 @@ def _chunk_window(C, dist, i):
     return acc + C
 
 
+def _chunk_suffix_window(f, dist, i):
+    """sc_detect_kernel's Ring::window with its suffix rings: the same
+    window as _chunk_window over the terms f (chunks, 32), its start chunk
+    summed as that chunk's suffix past i rather than T_a - C_a(i)."""
+    C = torch.cumsum(f, -1)
+    S = torch.flip(torch.cumsum(torch.flip(f, [-1]), -1), [-1])
+    E = torch.cat([S[:, 1:], torch.zeros_like(S[:, :1])], -1)
+    idx = torch.arange(C.shape[0])[:, None]
+    a = (idx - dist).clamp(min=0)
+    T = C[:, CHUNK - 1]
+    acc = torch.where(dist > 0, E[a, i], -C[a, i])
+    for b in range(1, int(dist.max())):
+        acc = acc + torch.where(b < dist, T[(idx - b).clamp(min=0)], 0.0)
+    return acc + C
+
+
 def _suffix_window(f):
     """sc_detect_l32_kernel's window of 32 ending at each (chunk, lane): the
     previous chunk's terms after the same lane, summed as a suffix, plus
@@ -214,8 +229,8 @@ def _suffix_window(f):
 
 
 def _kernel_model_rows(x, L, cp, head=None, suffix=True):
-    """`suffix`: the L = 32 kernel's window as it is; False models the
-    T_a - C_a(i) form it had before, which the any-L kernel keeps."""
+    """`suffix`: both kernels' windows as they are, a start summed as a
+    suffix; False models the T_a - C_a(i) form they had before."""
     v = x if head is None else torch.cat([head, x])
     nv = v.shape[0]
     W, c = cp + 1, cp - cp // 2
@@ -248,21 +263,29 @@ def _kernel_model_rows(x, L, cp, head=None, suffix=True):
         terms = (b[..., 0] * a[..., 0] + b[..., 1] * a[..., 1],
                  b[..., 0] * a[..., 1] - b[..., 1] * a[..., 0],
                  a[..., 0] ** 2 + a[..., 1] ** 2)
-        l32 = L == CHUNK and cp == 16 and suffix
-        Pre, Pim, R2 = (
-            torch.where(live, _suffix_window(torch.where(live, f, 0.0)) if l32
-                        else _chunk_window(torch.where(
-                            live, torch.cumsum(f, -1), 0.0), dL, iL), 0.0)
-            for f in terms)
+        l32 = L == CHUNK and cp == 16
+
+        def window(f, d, i):
+            f = torch.where(live, f, 0.0)
+            if suffix and l32:
+                return _suffix_window(f)
+            if suffix:
+                return _chunk_suffix_window(f, d, i)
+            return _chunk_window(torch.cumsum(f, -1), d, i)
+
+        Pre, Pim, R2 = (torch.where(live, window(f, dL, iL), 0.0)
+                        for f in terms)
         idx = torch.arange(k.shape[0])[:, None]
         R1 = R2[(idx - dL).clamp(min=0), iL]
         den = R1 * R2
         p2 = Pre ** 2 + Pim ** 2
         M = torch.where(den > 0, (p2 / den.clamp(min=1e-12)).clamp(max=2.0),
                         0.0)
-        CM = torch.where(live, torch.cumsum(torch.where(live, M, 0.0), -1),
-                         0.0)
-        sm = _chunk_window(CM, dW, iW) * (1.0 / W) + tk.tiebreak(t)
+        # the W-boxcar of M: sc_detect_l32_kernel keeps T_a - C_a
+        box = (_chunk_window(torch.cumsum(torch.where(live, M, 0.0), -1),
+                             dW, iW) if l32 or not suffix
+               else _chunk_suffix_window(torch.where(live, M, 0.0), dW, iW))
+        sm = box * (1.0 / W) + tk.tiebreak(t)
         sm = torch.where((t >= 2 * L + W - 2) & (t < nv), sm, float("-inf"))
         r2t = torch.where((t >= 2 * L - 1) & (t < nv), R2, 0.0)
         mine = slice(kf - (k0 - D), None)
@@ -346,6 +369,37 @@ def test_kernel_summation_model_holds_a_channel_beside_a_frame():
         """The largest ratio of |model - plain| to its bar."""
         got = [torch.stack(r) for r in zip(*(
             _kernel_model_rows(row, 32, 16, suffix=suffix) for row in x))]
+        live = torch.isfinite(ref[0]) & (got[1] == ref[1])
+        return max(((got[i] - ref[i]).abs()
+                    / ((1e-5 if i == 0 else 1e-5 * unit ** 2)
+                       + 1e-4 * ref[i].abs()))[live].max().item()
+                   for i in (0, 2, 3, 4))
+
+    assert worst(True) <= 1.0
+    assert worst(False) > 10.0
+
+
+def test_kernel_summation_model_holds_a_quiet_stretch_past_a_frame():
+    """The any-L kernel (fft 256, cp 64): golden frames ~1e5 over 0.01-rms
+    noise, each followed by a quiet stretch past its trailing edge, where
+    windows start inside the frame's last strong chunk.  The 16 frames end
+    at 16 offsets within a 32-position chunk (2 apart).  The suffix sums
+    give the plain rows at compare_rows' bars carried to that scale (P and
+    R at atol 1e-5 * unit^2; M's boxcar at 1e-5); the T_a - C_a(i) form
+    misses them by more than 10x."""
+    unit = 1000.0
+    gp = G.GoldenOfdmParams(fft_len=256, cp_len=64, modulation="qpsk")
+    frame = G.tx_frame(gp, bytes(range(48)), 3).astype(np.complex64)
+    x = _noise(12, 40000, 0.01)
+    for j in range(16):
+        p = 1000 + 2402 * j
+        x[p:p + len(frame)] += frame * np.float32(unit)
+    x = torch.as_tensor(x)
+    ref = tk.sc_detect_rows_plain(x, 128, 64)
+
+    def worst(suffix):
+        """The largest ratio of |model - plain| to its bar."""
+        got = _kernel_model_rows(x, 128, 64, suffix=suffix)
         live = torch.isfinite(ref[0]) & (got[1] == ref[1])
         return max(((got[i] - ref[i]).abs()
                     / ((1e-5 if i == 0 else 1e-5 * unit ** 2)

@@ -65,17 +65,22 @@
 // cp.async copies, so that ~190 KB per SM are under way without holding
 // registers (two rows a warp read ahead into registers measured slower).
 // sc_detect_kernel takes any L and W: one position a
-// lane per 32-position chunk, 5-step warp scans, and the chunk prefixes, P
-// and R2 of the last D chunks in a ring in shared memory (D =
+// lane per 32-position chunk, 5-step warp scans, and the chunk prefixes and
+// suffixes, P and R2 of the last D chunks in a ring in shared memory (D =
 // max(ceil(L/32)+1, ceil(W/32)+1, 4+ceil(c/32))), from which the windows,
-// R1 and the picks at t* - c are read back.
+// R1 and the picks at t* - c are read back.  It too forms a window's start
+// as the suffix of the chunk where it starts, summed by a reverse warp
+// scan (for P, R2 and the W-boxcar of M), never as T_a - C_a.
 // Error bound of the summation order: every window sum is at most
 // ceil(L/32)+1 segment-local partial sums (each of at most 32 float32
-// terms, to a depth of 7 additions) added once, so its error is within
-// ~(L/32 + 8) eps times the sum of the magnitudes of the terms in the
-// window (sc_detect_l32_kernel) or in the window and the segments at its
-// ends (sc_detect_kernel, which still takes T_a - C_a), at any block
-// length.
+// terms, to a depth of 7 additions) added once, each holding only terms
+// of the window, so its error is within ~(L/32 + 8) eps times the sum of
+// the magnitudes of the terms in the window, in both kernels, at any
+// block length.  Only a window that lies inside one chunk is still a
+// difference of two prefixes of that chunk: the W-boxcar of M at lanes
+// past W - 1 when W < 32 (M's terms lie in [0, 2], so it loses at most
+// ~64 eps), and P and R2 at L < 32 (fft_len < 64, no configuration of
+// the receiver).  sc_detect_l32_kernel's boxcar of M keeps T_a - C_a.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -96,9 +101,9 @@ constexpr int kL32Cp = 16;  // sc_detect_l32_kernel's cp (W <= 32 for its sums)
 constexpr int kAhead = 8;
 constexpr size_t kSmemMax = 227 * 1024;
 constexpr unsigned kAll = 0xffffffffu;
-// the any-L kernel's rings: P re, P im, R2, and the chunk prefixes of
-// prod re, prod im, e and M
-enum { kWre, kWim, kWr2, kCre, kCim, kCe, kCm, kRings };
+// the any-L kernel's rings: P re, P im, R2, the chunk prefixes of prod re,
+// prod im, e and M, and their chunk suffixes
+enum { kWre, kWim, kWr2, kCre, kCim, kCe, kCm, kSre, kSim, kSe, kSm, kRings };
 
 __device__ __forceinline__ int floor_div32(int a) {
   return (a >= 0 ? a : a - (kChunk - 1)) / kChunk;
@@ -114,6 +119,17 @@ __device__ __forceinline__ float warp_scan(float s, int lane) {
   return s;
 }
 
+// inclusive suffix sum of s across the warp's lanes (lane i gets the sum
+// over lanes i .. 31)
+__device__ __forceinline__ float warp_suffix(float s, int lane) {
+#pragma unroll
+  for (int o = 1; o < kChunk; o <<= 1) {
+    const float t = __shfl_down_sync(kAll, s, o);
+    if (lane + o < kChunk) s += t;
+  }
+  return s;
+}
+
 // A warp's ring of the last D chunks in shared memory; slot ks holds the
 // current chunk k, and `dist` counts chunks back from it.
 struct Ring {
@@ -125,13 +141,16 @@ struct Ring {
     if (s < 0) s += D;
     return base[(q * D + s) * kChunk + i];
   }
-  // the sum of ring q's terms over the window ending at this lane's
-  // position, whose start lies `dist` chunks back at index i + 1; cur is
-  // this lane's chunk prefix
-  __device__ __forceinline__ float window(int q, int dist, int i,
+  // the sum of the terms of prefix ring q (suffix ring sq) over the window
+  // ending at this lane's position, whose start lies `dist` chunks back at
+  // index i + 1; cur is this lane's chunk prefix.  The start chunk gives
+  // its suffix past i, the chunks between their totals: each part holds
+  // only terms of the window.  A window inside the current chunk (dist 0)
+  // is cur - C(i).
+  __device__ __forceinline__ float window(int q, int sq, int dist, int i,
                                           float cur) const {
-    float acc = dist > 0 ? at(q, dist, kChunk - 1) - at(q, dist, i)
-                         : -at(q, 0, i);
+    if (dist == 0) return cur - at(q, 0, i);
+    float acc = i + 1 < kChunk ? at(sq, dist, i + 1) : 0.f;
     for (int b = dist - 1; b >= 1; --b) acc += at(q, b, kChunk - 1);
     return acc + cur;
   }
@@ -457,8 +476,8 @@ sc_detect_l32_kernel(const float2* __restrict__ head, int h,
   }
 }
 
-// Any L and W: the chunk prefixes go to the ring too, and a window sums
-// them over as many chunks as it spans.
+// Any L and W: the chunk prefixes and suffixes go to the ring too, and a
+// window sums them over as many chunks as it spans.
 __global__ void __launch_bounds__(kWarpsMax * 32)
 sc_detect_kernel(const float2* __restrict__ head, int h, long long head_stride,
                  const float2* __restrict__ x, int nv, long long x_stride,
@@ -501,16 +520,22 @@ sc_detect_kernel(const float2* __restrict__ head, int h, long long head_stride,
     vb = st.load(kChunk * (k + 2) + lane);
     lb = st.load(kChunk * (k + 2) + lane - L);
 
-    const float cre = warp_scan(vl.x * v.x + vl.y * v.y, lane);
-    const float cim = warp_scan(vl.x * v.y - vl.y * v.x, lane);
-    const float ce = warp_scan(v.x * v.x + v.y * v.y, lane);
+    const float fre = vl.x * v.x + vl.y * v.y;
+    const float fim = vl.x * v.y - vl.y * v.x;
+    const float fe = v.x * v.x + v.y * v.y;
+    const float cre = warp_scan(fre, lane);
+    const float cim = warp_scan(fim, lane);
+    const float ce = warp_scan(fe, lane);
     ring.at(kCre, 0, lane) = cre;
     ring.at(kCim, 0, lane) = cim;
     ring.at(kCe, 0, lane) = ce;
+    ring.at(kSre, 0, lane) = warp_suffix(fre, lane);
+    ring.at(kSim, 0, lane) = warp_suffix(fim, lane);
+    ring.at(kSe, 0, lane) = warp_suffix(fe, lane);
     __syncwarp();
-    const float pre = ring.window(kCre, dL, iL, cre);
-    const float pim = ring.window(kCim, dL, iL, cim);
-    const float r2 = ring.window(kCe, dL, iL, ce);
+    const float pre = ring.window(kCre, kSre, dL, iL, cre);
+    const float pim = ring.window(kCim, kSim, dL, iL, cim);
+    const float r2 = ring.window(kCe, kSe, dL, iL, ce);
     ring.at(kWre, 0, lane) = pre;
     ring.at(kWim, 0, lane) = pim;
     ring.at(kWr2, 0, lane) = r2;
@@ -518,11 +543,12 @@ sc_detect_kernel(const float2* __restrict__ head, int h, long long head_stride,
     const float m = metric(pre, pim, ring.at(kWr2, dL, iL), r2);
     const float cm = warp_scan(m, lane);
     ring.at(kCm, 0, lane) = cm;
+    ring.at(kSm, 0, lane) = warp_suffix(m, lane);
     __syncwarp();
 
     if (k >= kf) {
-      rm.add(kChunk * k + lane, ring.window(kCm, dW, iW, cm), r2, rW, t_sm,
-             t_pr, nv);
+      rm.add(kChunk * k + lane, ring.window(kCm, kSm, dW, iW, cm), r2, rW,
+             t_sm, t_pr, nv);
       if ((k & 3) == 3) rm.finish(ring, k, lane, c, t_pr, nv, rows, out);
     }
     ring.next();
@@ -548,7 +574,11 @@ extern "C" int sc_detect_launch(const void* head, long long h,
   const int c = cp - cp / 2;
   const bool l32 = L == kChunk && cp == kL32Cp;
   // the any-L kernel's ring depth: the picks reach back 3 + ceil(c/32)
-  // chunks, the windows ceil(L/32) and ceil(W/32)
+  // chunks, the windows ceil(L/32) and ceil(W/32).  Its 11 rings take 7 KB
+  // a warp at fft 256 / cp 64 (D 5) and 24 KB at fft 1024 / cp 256 (D 17):
+  // 8 warps a block up to fft 1024.  Past that the suffix rings cost warps
+  // (fft 2048: 5, against 7 with prefixes alone), the price of sums that
+  // hold only their window's terms.
   auto chunks = [](int v) { return (v + kChunk - 1) / kChunk; };
   const int D = std::max({chunks(L) + 1, chunks(W) + 1, 4 + chunks(c)});
   const size_t per_warp = static_cast<size_t>(kRings) * D * kChunk * 4;

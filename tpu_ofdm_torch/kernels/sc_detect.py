@@ -95,6 +95,13 @@ def sc_detect_rows_plain(x: torch.Tensor, L: int, cp: int,
     )
 
 
+def kernel_form(L: int, cp: int) -> str:
+    """Which of csrc/sc_detect.cu's kernels a launch at (L, cp) runs:
+    "l32" (sc_detect_l32_kernel, fft 64 with cp 16) or "any_l"
+    (sc_detect_kernel)."""
+    return "l32" if L == 32 and cp == 16 else "any_l"
+
+
 def sc_detect_rows(x: torch.Tensor, L: int, cp: int,
                    head: torch.Tensor | None = None):
     """Row summaries over the virtual buffer [head | x]: complex64, x (n,)
@@ -125,8 +132,10 @@ def sc_detect_rows(x: torch.Tensor, L: int, cp: int,
         rows,
     )
     sc_detect_rows.launches += 1
+    sc_detect_rows.forms[kernel_form(L, cp)] += 1
     out = out.reshape(6, *x.shape[:-1], rows)
     return (out[0], out[1].view(torch.int32), out[2], out[3], out[4], out[5])
 
 
 sc_detect_rows.launches = 0  # kernel launches since the last reset
+sc_detect_rows.forms = {"l32": 0, "any_l": 0}  # the same, by kernel_form
