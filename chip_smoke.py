@@ -11,10 +11,14 @@ in order -- any failure raises and the script exits non-zero:
               the paths' shapes and on golden frames; kernel and plain
               times (warm, with the launches queued ahead so that the
               events time the card); rx_block on the card against rx_block
-              on the CPU.  sc_detect (fft 64 and fft 256) also with its
-              frames ~60 dB over the noise; sc_detect and gather also
-              batched over 64 channels; gather bit for bit at odd and even
-              F on windows of every class and both parities, and timed cold
+              on the CPU.  sc_detect by kernel form (launch counts): the
+              L = 32 kernel at fft 64, the segment kernel at fft 128, 256,
+              512 and 1024 (also at cp 0, batched 4 x [1024 | 32768], and
+              timed at BASELINE config 2's [4096 | 2^25]) and the any-L
+              kernel at fft 96, each also with its frames ~60 dB over the
+              noise; sc_detect and gather also batched over 64 channels;
+              gather bit for bit at odd and even F on windows of every
+              class and both parities, and timed cold
               (L2 flushed before each launch) and per call from the host
               beside x.unfold(-1, F, 1)[starts]; pfb at 8..512 channels with a
               two-step tail carry, and the one-shot channelize on the card
@@ -467,10 +471,18 @@ def compare_rows(got, ref, what: str, unit: float = 1.0) -> float:
     return err
 
 
-def check_selection(spec, got, ref, nv, positions, what, slack=0):
+TIE_ULPS = 2.0   # check_selection: row maxima this close count as a tie
+
+
+def check_selection(spec, got, ref, nv, positions, what, slack=0, ties=0):
     """_select_from_rows on kernel rows and on plain rows must give the
     same detections, and find every injected frame inside its CP (+
-    `slack`)."""
+    `slack`).  `ties`: a selected start may differ from the plain's by up
+    to `ties` samples where the two rows' maxima agree to TIE_ULPS float32
+    ulps.  The tie-break ramp (1e-7 a sample) lies under float32's
+    resolution at sm ~ 1 (1.2e-7), so a flat plateau (cp 256 at fft 1024)
+    ties, and a kernel and its plain version, summing in other orders,
+    resolve such a tie each its own way."""
     n_sm = nv - spec.fft_len - spec.cp_len + 1
     K = len(positions) + 8
     sel = [_select_from_rows(spec, *rows, n_sm=n_sm, max_frames=K,
@@ -479,8 +491,18 @@ def check_selection(spec, got, ref, nv, positions, what, slack=0):
     if not torch.equal(sel[0].valid, sel[1].valid):
         raise AssertionError(f"{what}: selection valid masks differ")
     v = sel[0].valid
-    if not torch.equal(sel[0].start[v], sel[1].start[v]):
-        raise AssertionError(f"{what}: selected starts differ")
+    moved = sel[0].start[v] != sel[1].start[v]
+    if moved.any():
+        gap = (sel[0].start[v] - sel[1].start[v])[moved].abs().max().item()
+        a, b = sel[0][3][v][moved], sel[1][3][v][moved]
+        ulps = ((a - b).abs() / torch.finfo(torch.float32).eps
+                / b.abs().clamp(min=1e-30)).max().item()
+        if gap > ties or ulps > TIE_ULPS:
+            raise AssertionError(f"{what}: selected starts differ (by up to "
+                                 f"{gap} samples, row maxima {ulps:.3g} ulps "
+                                 "apart)")
+        log(f"  {what}: {int(moved.sum())} of {int(v.sum())} starts on a "
+            f"float32 tie, {gap} sample(s) from the plain version's")
     torch.testing.assert_close(sel[0].fine_cfo[v], sel[1].fine_cfo[v],
                                rtol=1e-3, atol=1e-4)
     starts = sel[0].start[v].cpu().numpy()
@@ -491,14 +513,150 @@ def check_selection(spec, got, ref, nv, positions, what, slack=0):
                              f"want {len(want)} inside their CPs")
 
 
-def check_sc_detect(spec, x, head, positions, what, slack=0) -> float:
+def check_sc_detect(spec, x, head, positions, what, slack=0, ties=0,
+                    select=True) -> float:
+    """sc_detect on [head | x] (x (n,) or (B, n), positions then per batch
+    row) against its plain version: compare_rows, then (`select`) the
+    selection of each batch row by check_selection."""
     L = spec.fft_len // 2
     got = kdetect.sc_detect_rows(x, L, spec.cp_len, head=head)
     ref = kdetect.sc_detect_rows_plain(x, L, spec.cp_len, head=head)
     err = compare_rows(got, ref, what)
-    nv = x.shape[0] + (0 if head is None else head.shape[0])
-    check_selection(spec, got, ref, nv, positions, what, slack)
+    nv = x.shape[-1] + (0 if head is None else head.shape[-1])
+    if not select:
+        return err
+    if x.ndim == 1:
+        check_selection(spec, got, ref, nv, positions, what, slack, ties)
+    for b in range(x.shape[0] if x.ndim == 2 else 0):
+        check_selection(spec, [r[b] for r in got], [r[b] for r in ref], nv,
+                        positions[b], f"{what} row {b}", slack, ties)
     return err
+
+
+# phase 3: sc_detect on 2^20 samples of golden frames, by kernel form
+# (kernels.sc_detect.kernel_form): (fft_len, cp, heads, form, ties).  The
+# L = 32 and any-L kernels' cases and fft 256 hold the selection exactly;
+# at cp >= 128 a start may sit on a float32 tie (check_selection's `ties`)
+DETECT_N = 1 << 20
+DETECT_CASES = [(64, 16, (0, 3072), "l32", 0),
+                (128, 32, (0, 4096), "seg", 0),
+                (256, 64, (0, 3072, 4096), "seg", 0),
+                (512, 128, (0, 4096), "seg", 2),
+                (1024, 256, (0, 4096), "seg", 2),
+                (96, 24, (0, 4096), "any_l", 0)]
+DETECT_BATCH = (4, 1024, 32768)      # B x [h | n] at fft 256
+
+
+def detect_form(what: str, form: str, fn):
+    """fn() with sc_detect's launch counts by form reset first; it must
+    have launched `form` once and no other kernel."""
+    reset_launches("sc_detect")
+    out = fn()
+    got = dict(kdetect.sc_detect_rows.forms)
+    want = {f: int(f == form) for f in got}
+    if got != want:
+        raise AssertionError(f"{what}: sc_detect kernels launched {got}, "
+                             f"want {want}")
+    return out
+
+
+def detect_buffer(spec, n: int, seed: int, dev, scale: float = 1.0):
+    """n samples of noise (0.02 rms times `scale`) with the golden frame
+    of `spec` every n // 24 from 1000; and its positions."""
+    frame = golden_frame(spec)
+    positions = list(range(1000, n - 2 * len(frame), n // 24))
+    buf = noisy_buffers(1, n, seed=seed, dev=dev) * scale
+    add_frames(buf, frame, positions)
+    return buf[0], positions
+
+
+def time_detect(x, head, L: int, cp: int, what: str, tag: str) -> dict:
+    """The kernel (20 launches) and its plain version (3) on [head | x],
+    warm, with the bound and the share."""
+    ms = cuda_ms(lambda: kdetect.sc_detect_rows(x, L, cp, head=head), 20)
+    plain = cuda_ms(lambda: kdetect.sc_detect_rows_plain(x, L, cp,
+                                                         head=head), 3)
+    B = x.shape[0] if x.ndim == 2 else 1
+    b = detect_bound(B, x.shape[-1] + (0 if head is None else
+                                       head.shape[-1]))
+    log(f"  {what}: kernel {ms:.4f} ms, plain {plain:.4f} ms  [{tag}]")
+    log_bound(what, ms, b)
+    return {"ms": ms, "plain_ms": plain, **b, "share": b["bound_ms"] / ms}
+
+
+def check_detect_forms(dev, tag: str) -> dict:
+    """sc_detect's three kernels against the plain version, each case
+    counted by form: DETECT_CASES at every head, and with the frames ~60 dB
+    over the noise; the segment kernel also at cp 0 (rows only: at cp 0 the
+    selection finds extra frames on the plain rows too) and batched, and
+    timed at BASELINE config 2's [4096 | 2^25] and on 2^20; the any-L
+    kernel timed on 2^20.  Returns {form: times and max error} for the
+    segment and any-L kernels."""
+    errs = collections.defaultdict(float)
+    timed = {}
+    for fft_len, cp, heads, form, ties in DETECT_CASES:
+        spec = OfdmConfig(fft_len=fft_len, cp_len=cp, modulation="qpsk").spec
+        buf, positions = detect_buffer(spec, DETECT_N, fft_len, dev)
+        for h in heads:
+            head = buf[:h].contiguous() if h else None
+            what = f"sc_detect fft {fft_len} cp {cp} head {h} ({form})"
+            errs[form] = max(errs[form], detect_form(what, form, lambda: (
+                check_sc_detect(spec, buf[h:].contiguous(), head, positions,
+                                what, ties=ties))))
+        if form != "l32" and fft_len in (96, 256):
+            timed[form] = time_detect(buf, None, fft_len // 2, cp,
+                                      f"sc_detect ({form}) fft {fft_len} cp "
+                                      f"{cp} on 2^20", tag)
+        # a quiet channel: the same frames over 5e-4 rms noise, ~60 dB
+        # under them, so a window just past a frame is ~1e6 times weaker
+        # than the segment before it
+        quiet, positions = detect_buffer(spec, DETECT_N, fft_len + 1, dev,
+                                         scale=0.025)
+        what = (f"sc_detect fft {fft_len} cp {cp} head 3072 ({form}), frames"
+                " ~60 dB over the noise")
+        errs[form] = max(errs[form], detect_form(what, form, lambda: (
+            check_sc_detect(spec, quiet[3072:].contiguous(),
+                            quiet[:3072].contiguous(), positions, what,
+                            ties=ties))))
+    spec = OfdmConfig(fft_len=256, cp_len=0, modulation="qpsk").spec
+    buf, positions = detect_buffer(spec, DETECT_N, 257, dev)
+    what = "sc_detect fft 256 cp 0 head 4096 (seg), rows"
+    errs["seg"] = max(errs["seg"], detect_form(what, "seg", lambda: (
+        check_sc_detect(spec, buf[4096:].contiguous(), buf[:4096]
+                        .contiguous(), positions, what, select=False))))
+    # batched: B buffers [h | n], their frames at other offsets in each
+    B, h, n = DETECT_BATCH
+    spec = OfdmConfig(fft_len=256, cp_len=64, modulation="qpsk").spec
+    frame = golden_frame(spec)
+    bufs = noisy_buffers(B, h + n, seed=258, dev=dev)
+    rows_pos = []
+    for b in range(B):
+        pos = list(range(500 + 777 * b, h + n - 2 * len(frame), 5000))
+        add_frames(bufs[b:b + 1], frame, pos)
+        rows_pos.append(pos)
+    what = f"sc_detect fft 256 cp 64 batched {B} x [{h} | {n}] (seg)"
+    errs["seg"] = max(errs["seg"], detect_form(what, "seg", lambda: (
+        check_sc_detect(spec, bufs[:, h:].contiguous(),
+                        bufs[:, :h].contiguous(), rows_pos, what))))
+    # full width: BASELINE config 2's [4096 | 2^25] (phase 13's block)
+    c2 = BASELINES[1]
+    spec = c2.cfg.spec
+    H = history_len(spec)
+    blocks, pos = staged_blocks(spec, 2, dev, seed=31, frame=baseline_frame(
+        c2, baseline_payload(spec, 1)))
+    x, head = blocks[0], blocks[1, -H:].contiguous()
+    what = f"sc_detect {c2.name} [{H} | 2^25] (seg)"
+    errs["seg"] = max(errs["seg"], detect_form(what, "seg", lambda: (
+        check_sc_detect(spec, x, head, [p + H for p in pos], what))))
+    full = time_detect(x, head, spec.fft_len // 2, spec.cp_len,
+                       f"sc_detect (seg) at {c2.name}'s [{H} | 2^25]", tag)
+    del blocks, x, head
+    return {"seg": {**full, "shape": f"[{H} | 2^25] fft 256 cp 64",
+                    "ms_2^20": timed["seg"]["ms"],
+                    "plain_ms_2^20": timed["seg"]["plain_ms"],
+                    "max_abs_err": errs["seg"]},
+            "any_l": {**timed["any_l"], "shape": "2^20 fft 96 cp 24",
+                      "max_abs_err": errs["any_l"]}}
 
 
 def phase_kernels(dev, tag: str) -> list[dict]:
@@ -506,34 +664,7 @@ def phase_kernels(dev, tag: str) -> list[dict]:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # sc_detect on a 2^20-sample buffer with golden frames, both configs,
-    # contiguous (h = 0) and split at a 3072-sample head
-    n = 1 << 20
-    for fft_len, cp in [(64, 16), (256, 64)]:
-        spec = OfdmConfig(fft_len=fft_len, cp_len=cp, modulation="qpsk").spec
-        frame = golden_frame(spec)
-        positions = list(range(1000, n - 2 * len(frame), n // 24))
-        buf = noisy_buffers(1, n, seed=fft_len, dev=dev)
-        add_frames(buf, frame, positions)
-        buf = buf[0]
-        for h in (0, 3072):
-            head = buf[:h].contiguous() if h else None
-            check_sc_detect(spec, buf[h:].contiguous(), head, positions,
-                            f"sc_detect fft {fft_len} cp {cp} head {h}")
-    # a quiet channel: the same frames over 5e-4 rms noise, ~60 dB under
-    # them, so a window just past a frame is ~1e6 times weaker than the
-    # segment before it; at fft 64 (the L = 32 kernel) and fft 256 (the
-    # any-L kernel)
-    for fft_len, cp in [(64, 16), (256, 64)]:
-        spec = OfdmConfig(fft_len=fft_len, cp_len=cp, modulation="qpsk").spec
-        frame = golden_frame(spec)
-        positions = list(range(1000, n - 2 * len(frame), n // 24))
-        quiet = noisy_buffers(1, n, seed=fft_len + 1, dev=dev) * 0.025
-        add_frames(quiet, frame, positions)
-        check_sc_detect(spec, quiet[0, 3072:].contiguous(),
-                        quiet[0, :3072].contiguous(), positions,
-                        f"sc_detect fft {fft_len} cp {cp} head 3072, frames "
-                        "~60 dB over the noise")
+    forms = check_detect_forms(dev, tag)
 
     # the headline shape: [3072-sample history | 2^25 block], 448 frames
     spec = HEADLINE.spec
@@ -601,9 +732,15 @@ def phase_kernels(dev, tag: str) -> list[dict]:
 
     err_b_det, err_b_g = check_batched(dev, tag)
     kernels = {
-        "sc_detect": {"max_abs_err": max(err_det, err_b_det), "ms": ms_det,
-                      "plain_ms": ms_det_plain, **b_det,
-                      "library_ms": None},
+        "sc_detect": {"max_abs_err": max([err_det, err_b_det] + [
+                          f["max_abs_err"] for f in forms.values()]),
+                      "ms": ms_det, "plain_ms": ms_det_plain, **b_det,
+                      "library_ms": None,
+                      "forms": {"l32": {"ms": ms_det, "plain_ms": ms_det_plain,
+                                        **b_det, "share": b_det["bound_ms"]
+                                        / ms_det, "max_abs_err": err_det,
+                                        "shape": f"[{H} | 2^25]"},
+                                **forms}},
         "gather": {"max_abs_err": max(err_g, err_b_g),
                    "ms": ms_g, "plain_ms": ms_g_plain, **b_g,
                    "cold_ms": cold_g, "call_ms": call_g, **lib_g},
@@ -1216,10 +1353,16 @@ def reset_launches(*names):
             WRAPPERS[name].forms[form] = 0
 
 
+# sc_detect's launches on the paths by kernel form, summed by read_launches
+FORM_LAUNCHES = collections.Counter()
+
+
 def read_launches(path: str, *names) -> dict:
     """The launch counts of `names` since reset_launches; raises if a
     kernel of the path was never launched."""
     launches = {name: WRAPPERS[name].launches for name in names}
+    if "sc_detect" in names:
+        FORM_LAUNCHES.update(getattr(WRAPPERS["sc_detect"], "forms", {}))
     log(f"{path}: launches {launches}")
     for name, count in launches.items():
         if count <= 0:
@@ -3270,6 +3413,9 @@ def main():
             # phases 12 and 13 also hold the kernels to their plain versions
             "max_abs_err": max([res["max_abs_err"]] + [
                 r.get("errors", {}).get(name, 0.0) for r in runs])})
+        if name == "sc_detect":
+            for form, entry in report[-1]["forms"].items():
+                entry["launches"] = FORM_LAUNCHES[form]
         if name in ("sc_detect", "gather"):
             # phase 13: at each BASELINE config's shape, on its inputs
             report[-1]["configs"] = {

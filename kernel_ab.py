@@ -19,9 +19,12 @@ chip_smoke.py's `kernels` line:
   detect       sc_detect at fft 64 on [3072 | 2^25] (the headline block)
                and on 128 channels of [1024 | 32768] of config 5's first
                chunk channelized at 512 (its frames ~1e5 over the channel
-               noise); the any-L kernel at fft 256 / cp 64 on chip_smoke.py
-               phase 3's 2^20 buffer of golden frames and on BASELINE
-               config 2's [4096 | 2^25] (phase 13's block), warm
+               noise); at fft 128 / cp 32, 256 / cp 64, 512 / cp 128 and
+               1024 / cp 256 (the segment kernel; the any-L kernel in
+               trees before it) on chip_smoke.py phase 3's 2^20 buffers of
+               golden frames and on [4096 | 2^25] (at fft 256 BASELINE
+               config 2's block, phase 13's; the others phase 3's frames
+               over a 2^25 block), warm
   gather       K 480, F 2000 over [3072 | 2^25] across the seam, warm and
                cold (chip_smoke.cuda_ms / cold_ms)
   gather_x     the same windows' contiguous form, over the 2^25 block alone
@@ -81,22 +84,30 @@ def inputs(dev) -> dict:
     c5 = c5.t()[:cs.C5_CHANS // cs.C5_MESH[0]]
     h5, x5 = c5[:, cs.C5_S - 1024:cs.C5_S].contiguous(), \
         c5[:, cs.C5_S:].contiguous()
-    # the any-L kernel: phase 3's fft-256 buffer, and config 2's block
-    s256 = cs.OfdmConfig(fft_len=256, cp_len=64, modulation="qpsk").spec
-    f256 = cs.golden_frame(s256)
-    n20 = 1 << 20
-    b20 = cs.noisy_buffers(1, n20, seed=256, dev=dev)
-    cs.add_frames(b20, f256, list(range(1000, n20 - 2 * len(f256), n20 // 24)))
-    c2 = cs.BASELINES[1]
-    H2 = history_len(c2.cfg.spec)
-    blocks2, _ = cs.staged_blocks(c2.cfg.spec, 2, dev, seed=31, frame=(
-        cs.baseline_frame(c2, cs.baseline_payload(c2.cfg.spec, 1))))
+    # fft 128 to 1024: phase 3's 2^20 buffers, and [4096 | 2^25]: config
+    # 2's block at fft 256, phase 3's frames over a 2^25 block elsewhere
+    detect = {}
+    for fft_len, cp in DETECT_SPECS:
+        spec = cs.OfdmConfig(fft_len=fft_len, cp_len=cp,
+                             modulation="qpsk").spec
+        b20, _ = cs.detect_buffer(spec, 1 << 20, fft_len, dev)
+        detect[f"detect_{fft_len}_2^20"] = (
+            "detect", (b20, None, fft_len // 2, cp), None)
+        if fft_len == 256:
+            c2 = cs.BASELINES[1]
+            blocks2, _ = cs.staged_blocks(c2.cfg.spec, 2, dev, seed=31, frame=(
+                cs.baseline_frame(c2, cs.baseline_payload(c2.cfg.spec, 1))))
+            big = (blocks2[0], blocks2[1, -4096:].contiguous())
+            name = "detect_config2"
+        else:
+            b25, _ = cs.detect_buffer(spec, 4096 + cs.BLOCK, fft_len + 2, dev)
+            big = (b25[4096:], b25[:4096].contiguous())
+            name = f"detect_{fft_len}_2^25"
+        detect[name] = ("detect", (*big, fft_len // 2, cp), None)
     return {
         "detect_1": ("detect", (x, head, 32, 16), None),
         "detect_c5": ("detect", (x5, h5, 32, 16), None),
-        "detect_256_2^20": ("detect", (b20[0], None, 128, 64), None),
-        "detect_config2": ("detect", (blocks2[0], blocks2[1, -H2:]
-                                      .contiguous(), 128, 64), None),
+        **detect,
         "metric_1": ("metric", (r1, 32), None),
         "metric_4096": ("metric", (r2, 32), None),
         "gate_1": ("gate", (r1, 32), None),
@@ -113,6 +124,8 @@ def inputs(dev) -> dict:
 
 
 GATE_W = 2 * cs.HEADLINE.spec.sym_len + 1
+# sc_detect's segment-kernel specs (fft_len, cp), timed on 2^20 and 2^25
+DETECT_SPECS = [(128, 32), (256, 64), (512, 128), (1024, 256)]
 
 
 def runner(lib, kernel: str, args):

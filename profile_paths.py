@@ -66,8 +66,9 @@ CONFIG_CELLS = ("rx_stream_config1", "rx_stream_config2",
 DDC_BLOCK = 1 << 15      # run_flowgraph's default block
 # the port's kernels (csrc/*.cu), as the trace names them
 PORT_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)")
-PORT_KERNELS = {"sc_detect_l32_kernel", "sc_detect_kernel", "gather_kernel",
-                "pfb_kernel", "psd_kernel", "psd_tile_kernel", "scan_kernel",
+PORT_KERNELS = {"sc_detect_l32_kernel", "sc_detect_seg_kernel",
+                "sc_detect_kernel", "gather_kernel", "pfb_kernel",
+                "psd_kernel", "psd_tile_kernel", "scan_kernel",
                 "sc_metric_l32_kernel", "sc_metric_kernel"}
 
 

@@ -7,7 +7,9 @@ ring raises instead of hanging, and a failed read raises instead of ending
 the stream."""
 
 import os
+import shutil
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -18,6 +20,22 @@ from tpu_ofdm_torch.runtime import build as rbuild
 
 BLOCK = 2048
 FORMATS = [("i8c", np.int8), ("i16c", np.int16), ("f32c", np.float32)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_engine():
+    """The JAX runtime's native engine in this worker.  tpu_ofdm.runtime
+    builds `_native.so` with g++ in place at import; xdist workers that
+    import it at once on a tree without the library each run g++ on that
+    one file, and a worker that loads it half-written takes the numpy
+    engine without a word.  Once collection is over those builds have
+    ended (or soon will), so load again until the library is whole."""
+    deadline = time.monotonic() + 120.0
+    while (not jrt.NATIVE and shutil.which("g++")
+           and time.monotonic() < deadline):
+        jrt._load()
+        if not jrt.NATIVE:
+            time.sleep(0.5)
 
 
 @pytest.fixture(params=["native", "numpy"])

@@ -408,3 +408,226 @@ def test_kernel_summation_model_holds_a_quiet_stretch_past_a_frame():
 
     assert worst(True) <= 1.0
     assert worst(False) > 10.0
+
+
+# -- a model of sc_detect_seg_kernel (fft 128 to 1024) -----------------------
+#
+# The segment kernel's index scheme in torch: strips of max(32, 10 x warm)
+# rows after `warm` = ceil((2L + W - 2) / 128) rows of warm-up, segments of
+# S = 64 positions below L = 128 and of a row (128) from there on, a window
+# ending at t as E(t - L) (the terms of t - L's segment after it) plus the
+# totals of the whole segments between plus t's segment prefix C(t), R1 and
+# E(t - L) read back, zeros before the strip's first row (v[u - L] too at
+# L <= 128, where the kernel keeps the previous row in registers; past it
+# the sample ring holds the rows before), the W-boxcar of M as Cm(t) + the
+# M totals of the rows between - Cm(t - W) over row prefixes, and the picks
+# at t* - c.  `suffix` False forms E(t - L) as T - C(t - L), the foil.
+
+SEG_STRIP_MIN = 32   # csrc/sc_detect.cu kSegStripMin
+SEG_WARM_SHARE = 10  # csrc/sc_detect.cu kSegWarmShare
+
+
+def _seg_model_rows(x, L, cp, head=None, suffix=True):
+    v = x if head is None else torch.cat([head, x])
+    nv = v.shape[0]
+    W, c = cp + 1, cp - cp // 2
+    S = 64 if L < tk.ROW else tk.ROW
+    warm = -(-(2 * L + W - 2) // tk.ROW)
+    strip = max(SEG_STRIP_MIN, SEG_WARM_SHARE * warm)
+    rows = -(-nv // tk.ROW)
+    out = [[] for _ in range(6)]
+
+    def load(p):
+        ok = (p >= 0) & (p < nv)
+        return torch.where(ok, v[p.clamp(0, nv - 1)], 0)
+
+    for row0 in range(0, rows, strip):
+        row1 = min(rows, row0 + strip)
+        base = tk.ROW * (row0 - warm)          # the strip's first position
+        t = torch.arange(base, tk.ROW * row1)
+        i = t - base                           # strip-local index
+        il = i - L                             # of t - L; < 0: before it
+        a = torch.view_as_real(load(t))
+        b = torch.view_as_real(torch.where(
+            (il >= 0) | (L > tk.ROW), load(t - L), 0))
+        terms = (b[:, 0] * a[:, 0] + b[:, 1] * a[:, 1],
+                 b[:, 0] * a[:, 1] - b[:, 1] * a[:, 0],
+                 a[:, 0] ** 2 + a[:, 1] ** 2)
+        seg, seg_l = i // S, torch.div(il, S, rounding_mode="floor")
+
+        def back(z, j):
+            """z at strip-local index j, 0 before the strip."""
+            return torch.where(j >= 0, z[j.clamp(min=0)], 0.0)
+
+        def window(f):
+            f = f.reshape(-1, S)
+            C = torch.cumsum(f, -1)
+            T = C[:, -1]
+            if suffix:
+                E = torch.flip(torch.cumsum(torch.flip(f, [-1]), -1), [-1])
+                start = torch.cat([E[:, 1:], torch.zeros_like(E[:, :1])],
+                                  -1).reshape(-1)
+            else:
+                start = (T[:, None] - C).reshape(-1)
+            mid = torch.zeros_like(start)
+            for k in range(1, L // S + 1):     # whole segments between
+                j = seg - k
+                mid = mid + torch.where((j > seg_l) & (j >= 0),
+                                        T[j.clamp(min=0)], 0.0)
+            return (back(start, il) + mid) + C.reshape(-1)
+
+        Pre, Pim, R2 = (window(f) for f in terms)
+        R1 = back(R2, il)
+        den = R1 * R2
+        p2 = Pre ** 2 + Pim ** 2
+        M = torch.where(den > 0, (p2 / den.clamp(min=1e-12)).clamp(max=2.0),
+                        0.0)
+        Cm = torch.cumsum(M.reshape(-1, tk.ROW), -1)
+        Tm = Cm[:, -1]
+        iq = i - W
+        kq = i // tk.ROW - torch.div(iq, tk.ROW, rounding_mode="floor")
+        g = torch.zeros_like(M)
+        for k in range(1, -(-2 * L // tk.ROW) + 1):
+            j = i // tk.ROW - k
+            g = g + torch.where((k <= kq) & (j >= 0), Tm[j.clamp(min=0)], 0.0)
+        box = (g - back(Cm.reshape(-1), iq)) + Cm.reshape(-1)
+        sm = box * (1.0 / W) + tk.tiebreak(t)
+        sm = torch.where((t >= 2 * L + W - 2) & (t < nv), sm, float("-inf"))
+        r2t = torch.where((t >= 2 * L - 1) & (t < nv), R2, 0.0)
+        mine = slice(warm * tk.ROW, None)
+        smr = sm[mine].reshape(-1, tk.ROW)
+        arg = smr.argmax(-1)
+        ts = t[mine].reshape(-1, tk.ROW).gather(-1, arg[:, None])[:, 0]
+        tc = ts - c
+        ok = (tc >= 2 * L - 1) & (tc < nv)
+
+        def pick(z):
+            return torch.where(ok, z[(tc - base).clamp(0, len(z) - 1)], 0.0)
+
+        for o, r in zip(out, (smr.amax(-1), ts.to(torch.int32), pick(Pre),
+                              pick(Pim), pick(R2),
+                              r2t[mine].reshape(-1, tk.ROW).amax(-1))):
+            o.append(r)
+    return tuple(torch.cat(o) for o in out)
+
+
+def _rows_match(got, ref, unit=1.0):
+    """chip_smoke.py's compare_rows: argmax identical on >= 99% of rows,
+    the other rows at rtol 1e-4 / atol 1e-5 (P and R at 1e-5 * unit^2)
+    where it agrees; -inf where the plain version has it."""
+    same = got[1] == ref[1]
+    assert same.float().mean() >= 0.99
+    assert torch.equal(torch.isfinite(got[0]), torch.isfinite(ref[0]))
+    live = torch.isfinite(ref[0]) & same
+    for i in (0, 2, 3, 4, 5):
+        m = live if i < 5 else torch.ones_like(live)
+        torch.testing.assert_close(got[i][m], ref[i][m], rtol=1e-4,
+                                   atol=1e-5 * (1.0 if i == 0 else unit ** 2))
+
+
+def _same_selection(tspec, got, ref, nv, n_frames):
+    """The selections of both rows: the same frames, the same starts but
+    where a start sits on a float32 tie (chip_smoke.py check_selection:
+    within 2 samples, row maxima within 2 ulps)."""
+    n_sm = nv - tspec.fft_len - tspec.cp_len + 1
+    sel = [tsync._select_from_rows(tspec, *r, n_sm=n_sm,
+                                   max_frames=n_frames + 8,
+                                   threshold=tspec.cfg.sync_threshold)
+           for r in (got, ref)]
+    v = sel[1].valid
+    assert torch.equal(sel[0].valid, v)
+    assert int(v.sum()) == n_frames
+    moved = sel[0].start[v] != sel[1].start[v]
+    assert ((sel[0].start[v] - sel[1].start[v]).abs() <= 2).all()
+    a, b = sel[0][3][v][moved], sel[1][3][v][moved]
+    assert ((a - b).abs() <= 2 * torch.finfo(torch.float32).eps
+            * b.abs()).all()
+    torch.testing.assert_close(sel[0].fine_cfo[v][~moved],
+                               sel[1].fine_cfo[v][~moved], rtol=1e-3,
+                               atol=1e-4)
+
+
+SEG_N = 1 << 16   # every buffer of the segment model's cases
+
+
+@pytest.mark.parametrize("h", [0, 4096])
+@pytest.mark.parametrize("fft_len,cp", [(128, 32), (256, 64), (512, 128),
+                                        (1024, 256), (256, 0)])
+def test_seg_model_matches_plain_and_pallas(fft_len, cp, h):
+    """The segment kernel's scheme, modelled in torch on [h | 2^16 - h]
+    samples of golden frames, gives the plain version's rows at
+    compare_rows' bars and (but at cp 0, where the selection finds extra
+    frames on the plain rows too) its selection; and the JAX Pallas
+    kernel's rows, run in TPU interpret mode on the same buffer, at
+    tests/test_kernels_sc_detect.py's tolerances."""
+    tspec, spec = _specs(fft_len, cp)
+    gp = G.GoldenOfdmParams(fft_len=fft_len, cp_len=cp, modulation="qpsk")
+    frame = G.tx_frame(gp, bytes(range(40))).astype(np.complex64)
+    x = _noise(13 + fft_len, SEG_N, 0.02)
+    starts = list(range(700 + h, SEG_N - 2 * len(frame), 2 * len(frame)))
+    for p in starts:
+        x[p:p + len(frame)] += frame
+    v = torch.as_tensor(x)
+    head = v[:h] if h else None
+    L = fft_len // 2
+    assert tk.kernel_form(L, cp) == "seg"
+    got = _seg_model_rows(v[h:], L, cp, head)
+    ref = tk.sc_detect_rows_plain(v[h:], L, cp, head=head)
+    _rows_match(got, ref)
+    if cp:
+        _same_selection(tspec, got, ref, SEG_N, len(starts))
+    pallas = _pallas_rows(spec, x)
+    live = np.isfinite(ref[0].numpy())
+    pallas[0] = np.where(live, pallas[0], -np.inf)
+    # at fft 1024, 9 of the 512 rows lie before the first full window
+    _assert_rows_close([r.numpy() for r in got], pallas, live_frac=0.98)
+
+
+@pytest.mark.parametrize("fft_len", [256, 512])
+def test_seg_model_holds_a_quiet_stretch_past_a_frame(fft_len):
+    """The segment kernel (fft 256 and 512, cp fft/4): golden frames ~1e5
+    over 0.01-rms noise, each followed by a quiet stretch past its trailing
+    edge, where windows start inside the frame's last strong row.  The
+    frames end at offsets 16 apart within a row.  The suffix sums give the
+    plain rows at compare_rows' bars carried to that scale (P and R at atol
+    1e-5 * unit^2; M's boxcar at 1e-5); the T - C form misses them by more
+    than 10x."""
+    unit = 1000.0
+    cp = fft_len // 4
+    gp = G.GoldenOfdmParams(fft_len=fft_len, cp_len=cp, modulation="qpsk")
+    frame = G.tx_frame(gp, bytes(range(48)), 3).astype(np.complex64)
+    gap = len(frame) + 3 * fft_len + 16
+    n_frames = min(8, (SEG_N - 1000) // gap)
+    x = _noise(14, SEG_N, 0.01)
+    for j in range(n_frames):
+        p = 1000 + gap * j
+        x[p:p + len(frame)] += frame * np.float32(unit)
+    x = torch.as_tensor(x)
+    L = fft_len // 2
+    ref = tk.sc_detect_rows_plain(x, L, cp)
+
+    def worst(suffix):
+        """The largest ratio of |model - plain| to its bar."""
+        got = _seg_model_rows(x, L, cp, suffix=suffix)
+        live = torch.isfinite(ref[0]) & (got[1] == ref[1])
+        return max(((got[i] - ref[i]).abs()
+                    / ((1e-5 if i == 0 else 1e-5 * unit ** 2)
+                       + 1e-4 * ref[i].abs()))[live].max().item()
+                   for i in (0, 2, 3, 4))
+
+    assert worst(True) <= 1.0
+    assert worst(False) > 10.0
+
+
+@pytest.mark.parametrize("L,cp,form", [
+    (32, 16, "l32"), (32, 8, "any_l"), (16, 4, "any_l"), (48, 24, "any_l"),
+    (64, 32, "seg"), (96, 24, "seg"), (128, 0, "seg"), (128, 64, "seg"),
+    (128, 255, "seg"), (128, 256, "any_l"), (512, 256, "seg"),
+    (512, 1023, "seg"), (1024, 512, "any_l")])
+def test_kernel_form_names_three_kernels(L, cp, form):
+    """kernel_form follows csrc/sc_detect.cu's dispatch: the L = 32 kernel
+    at fft 64 / cp 16, the segment kernel at L a multiple of 32 in [64,
+    512] with cp < 2L, the any-L kernel elsewhere; the wrapper counts
+    launches by these names."""
+    assert tk.kernel_form(L, cp) == form
+    assert form in tk.sc_detect_rows.forms

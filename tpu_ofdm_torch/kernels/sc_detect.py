@@ -97,9 +97,14 @@ def sc_detect_rows_plain(x: torch.Tensor, L: int, cp: int,
 
 def kernel_form(L: int, cp: int) -> str:
     """Which of csrc/sc_detect.cu's kernels a launch at (L, cp) runs:
-    "l32" (sc_detect_l32_kernel, fft 64 with cp 16) or "any_l"
-    (sc_detect_kernel)."""
-    return "l32" if L == 32 and cp == 16 else "any_l"
+    "l32" (sc_detect_l32_kernel, fft 64 with cp 16), "seg"
+    (sc_detect_seg_kernel, L a multiple of 32 in [64, 512] with cp < 2L:
+    fft 128 to 1024) or "any_l" (sc_detect_kernel, every other spec)."""
+    if L == 32 and cp == 16:
+        return "l32"
+    if L % 32 == 0 and 64 <= L <= 512 and cp < 2 * L:
+        return "seg"
+    return "any_l"
 
 
 def sc_detect_rows(x: torch.Tensor, L: int, cp: int,
@@ -138,4 +143,4 @@ def sc_detect_rows(x: torch.Tensor, L: int, cp: int,
 
 
 sc_detect_rows.launches = 0  # kernel launches since the last reset
-sc_detect_rows.forms = {"l32": 0, "any_l": 0}  # the same, by kernel_form
+sc_detect_rows.forms = {"l32": 0, "seg": 0, "any_l": 0}  # by kernel_form
