@@ -5,14 +5,13 @@ pinning, no streams; the card's pinned path runs in chip_smoke.py phase
 FileStreamer read straight into the feed's buffers, source errors passed
 to the consumer, and an undrained feed stopped by close()."""
 
-import shutil
 import threading
-import time
 
 import numpy as np
 import pytest
 import torch
 
+from tests.helpers.jax_native import ensure_jax_native
 from tpu_ofdm import runtime as jrt
 from tpu_ofdm.io import DeviceFeed as JaxFeed
 from tpu_ofdm_torch import runtime as rt
@@ -23,18 +22,9 @@ CPU = "cpu"
 
 @pytest.fixture(autouse=True, scope="module")
 def _jax_native_engine():
-    """The JAX runtime's native engine in this worker.  tpu_ofdm.runtime
-    builds `_native.so` with g++ in place at import; xdist workers that
-    import it at once on a tree without the library each run g++ on that
-    one file, and a worker that loads it half-written takes the numpy
-    engine without a word.  Once collection is over those builds have
-    ended (or soon will), so load again until the library is whole."""
-    deadline = time.monotonic() + 120.0
-    while (not jrt.NATIVE and shutil.which("g++")
-           and time.monotonic() < deadline):
-        jrt._load()
-        if not jrt.NATIVE:
-            time.sleep(0.5)
+    """The JAX runtime's native engine in this worker, reloaded whole if
+    this worker lost the race to build it (tests/helpers/jax_native.py)."""
+    ensure_jax_native(jrt)
 
 
 def _blocks(n=10, size=64, seed=0):

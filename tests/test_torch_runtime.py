@@ -7,35 +7,28 @@ ring raises instead of hanging, and a failed read raises instead of ending
 the stream."""
 
 import os
-import shutil
+import subprocess
+import sys
 import threading
-import time
 
 import numpy as np
 import pytest
 
+from tests.helpers.jax_native import ensure_jax_native
 from tpu_ofdm import runtime as jrt
 from tpu_ofdm_torch import runtime as rt
 from tpu_ofdm_torch.runtime import build as rbuild
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCK = 2048
 FORMATS = [("i8c", np.int8), ("i16c", np.int16), ("f32c", np.float32)]
 
 
 @pytest.fixture(autouse=True, scope="module")
 def _jax_native_engine():
-    """The JAX runtime's native engine in this worker.  tpu_ofdm.runtime
-    builds `_native.so` with g++ in place at import; xdist workers that
-    import it at once on a tree without the library each run g++ on that
-    one file, and a worker that loads it half-written takes the numpy
-    engine without a word.  Once collection is over those builds have
-    ended (or soon will), so load again until the library is whole."""
-    deadline = time.monotonic() + 120.0
-    while (not jrt.NATIVE and shutil.which("g++")
-           and time.monotonic() < deadline):
-        jrt._load()
-        if not jrt.NATIVE:
-            time.sleep(0.5)
+    """The JAX runtime's native engine in this worker, reloaded whole if
+    this worker lost the race to build it (tests/helpers/jax_native.py)."""
+    ensure_jax_native(jrt)
 
 
 @pytest.fixture(params=["native", "numpy"])
@@ -81,6 +74,62 @@ def test_engine_reported():
     assert rbuild.compiler() is not None
     assert rt.NATIVE is True
     assert jrt.NATIVE is True
+
+
+# A worker that lost the race to build the JAX library: its import finds no
+# loadable library (ctypes.CDLL raises) and takes the numpy engine.  The
+# helper then brings the native engine back, and every converter and the
+# streamer must equal the port's bit for bit.
+_LOST_RACE = """
+import ctypes, os, sys, tempfile
+import numpy as np
+import jax, tpu_ofdm  # the patch below then touches only the runtime's load
+from tests.helpers.jax_native import ensure_jax_native
+from tpu_ofdm_torch import runtime as rt
+
+def lost_race(*args, **kwargs):
+    raise OSError("half-written _native.so")
+
+cdll, ctypes.CDLL = ctypes.CDLL, lost_race
+from tpu_ofdm import runtime as jrt
+ctypes.CDLL = cdll
+assert jrt.NATIVE is False
+assert ensure_jax_native(jrt) is True
+
+rng = np.random.RandomState(7)
+for fmt, dtype in (("i8c", np.int8), ("i16c", np.int16)):
+    wire = rng.randint(-100, 100, 2000).astype(dtype).view(np.uint8)
+    for g, w in zip(rt.to_planar(wire, fmt), jrt.to_planar(wire, fmt)):
+        assert g.tobytes() == w.tobytes(), fmt
+wire = rng.randn(2000).astype(np.float32).view(np.uint8)
+for g, w in zip(rt.to_planar(wire, "f32c"), jrt.to_planar(wire, "f32c")):
+    assert g.tobytes() == w.tobytes(), "f32c"
+re, im = (rng.randn(2, 999) * 0.5).astype(np.float32)
+for fmt in ("f32c", "i16c"):
+    assert rt.from_planar(re, im, fmt) == jrt.from_planar(re, im, fmt), fmt
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "c.i16c")
+    rng.randint(-30000, 30000, 2 * 4 * 512).astype(np.int16).tofile(path)
+    with rt.FileStreamer(path, "i16c", block_size=512) as fs:
+        got = list(fs)
+    jfs = jrt.FileStreamer(path, "i16c", block_size=512)
+    want = list(jfs)
+    jfs.close()
+assert len(got) == len(want) == 4
+for (gr, gi), (wr, wi) in zip(got, want):
+    assert gr.tobytes() == wr.tobytes() and gi.tobytes() == wi.tobytes()
+print("JAX_ENGINE_WHOLE")
+"""
+
+
+def test_jax_engine_reloaded_after_a_lost_build_race():
+    """The helper reloads the module whole: `_load()` alone would leave the
+    converters without argtypes, and the first conversion would crash the
+    process on its truncated pointers."""
+    proc = subprocess.run([sys.executable, "-c", _LOST_RACE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0 and "JAX_ENGINE_WHOLE" in proc.stdout, \
+        f"rc {proc.returncode}\n{proc.stderr}"
 
 
 def test_no_compiler_takes_the_numpy_engine(monkeypatch):
