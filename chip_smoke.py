@@ -2193,6 +2193,9 @@ INGEST_CUT = 3           # checkpoint after blocks 0 .. INGEST_CUT - 1
 INGEST_DROP = 4          # the block inject_faults drops
 INGEST_DEPTH = 3         # DeviceFeed depth
 INGEST_TRACED = 3        # pushes under metrics.trace
+# the program's stages in the trace: the profiler records the thread that
+# started it, not the feed's worker (feed.fill, file.read, file.convert)
+TRACED_STAGES = ("executor.push", "rx.detect", "rx.demod", "feed.wait")
 WATCHDOG_S = 10.0
 CHAT_MSGS = ["chip_smoke chat on the card", "second message"]
 ANALYZER_BLOCK = 1 << 17
@@ -2501,16 +2504,19 @@ def traced_ingest(paths: dict, dev, tmp: pathlib.Path) -> dict:
         for _ in range(INGEST_TRACED):
             ex.push(next(blocks))
         feed.close()
+    metrics.drain()
     events = json.loads((tmp / "trace" / metrics.TRACE_FILE).read_text())
     events = events["traceEvents"]
     names = {e.get("name", "") for e in events}
     found = {k: sorted(n for n in names if rx.search(n))
              for k, rx in PORT_SYMBOL.items()}
-    if not all(found.values()):
-        raise AssertionError(f"metrics.trace: port kernels not in the trace:"
-                             f" {found}")
+    stages = {metrics.PROFILER_PREFIX + n for n in TRACED_STAGES}
+    if not all(found.values()) or not stages <= names:
+        raise AssertionError(f"metrics.trace: port kernels or stages not in "
+                             f"the trace: {found}, {sorted(stages - names)}")
     log(f"  metrics.trace over {INGEST_TRACED} ingest pushes names "
-        f"{[n for v in found.values() for n in v]}")
+        f"{[n for v in found.values() for n in v]} and the stages "
+        f"{sorted(stages)}")
     nbytes = 2 * BLOCK * 4
     us = [e["dur"] for e in events if "HtoD" in e.get("name", "")
           and e.get("args", {}).get("bytes") == nbytes]
@@ -2552,11 +2558,17 @@ def phase_ingest(dev, tag: str, main_rate: float) -> dict:
         pc, link = PerfCounters(), LinkMetrics()
         ex = ingest_executor(dev)
         reset_launches("sc_detect", "gather")
-        with capture_streamer(paths) as fs, \
-                Watchdog(lambda: ex.samples_in, WATCHDOG_S) as wd:
-            reads = TimedReads(fs)
-            outs_b, dt, feed, times = ingest_run(reads, ex, dev, pc,
-                                                 sync_push=1)
+        metrics.drain()
+        was_on = metrics.enable(True)
+        try:
+            with capture_streamer(paths) as fs, \
+                    Watchdog(lambda: ex.samples_in, WATCHDOG_S) as wd:
+                reads = TimedReads(fs)
+                outs_b, dt, feed, times = ingest_run(reads, ex, dev, pc,
+                                                     sync_push=1)
+        finally:
+            metrics.enable(was_on)
+        spans = metrics.summary(metrics.drain().spans)
         launches = read_launches("ingest", "sc_detect", "gather")
         pushes = INGEST_BLOCKS + 1
         if set(launches.values()) != {pushes} or wd.stall_count:
@@ -2567,7 +2579,8 @@ def phase_ingest(dev, tag: str, main_rate: float) -> dict:
         check_ingest_frames(spec, frames_b, want, "ingest")
         link.update_from_frames(frames_b)
         link.add_samples(INGEST_BLOCKS * BLOCK)
-        report = {**feed.counters.report(), **pc.report()}
+        report = {name: {k: round(v, 3) for k, v in d.items()}
+                  for name, d in spans.items()}
         stages = {"read": block_ms([r for r, _ in reads.times]),
                   "convert": block_ms([c for _, c in reads.times]),
                   "feed": block_ms(times["feed"][:INGEST_BLOCKS]),
@@ -2586,7 +2599,8 @@ def phase_ingest(dev, tag: str, main_rate: float) -> dict:
             + " (read: the wait for the reader thread's bytes; convert: "
             "i16c into the pinned planes; feed: the consumer's wait for a "
             "staged block; push: its enqueue)")
-        log(f"ingest: stages (EWMA) {json.dumps(report)}")
+        log(f"ingest: spans (calls; host ms: total, self, mean) "
+            f"{json.dumps(report)}; stages (EWMA) {pc.report_json()}")
         log(f"ingest: link {json.dumps(link.summary())}")
         del feed, ex
 

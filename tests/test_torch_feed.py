@@ -16,6 +16,7 @@ from tpu_ofdm import runtime as jrt
 from tpu_ofdm.io import DeviceFeed as JaxFeed
 from tpu_ofdm_torch import runtime as rt
 from tpu_ofdm_torch.io import DeviceFeed
+from tpu_ofdm_torch.utils import metrics
 
 CPU = "cpu"
 
@@ -98,9 +99,13 @@ def test_file_streamer_through_the_feed_equals_jax(tmp_path, fmt):
 
 def test_feed_times_its_fills():
     fs_blocks = _blocks(n=4)
-    feed = DeviceFeed(iter(fs_blocks), device=CPU)
-    list(feed)
-    assert feed.counters.report()["fill"]["calls"] == 4
+    was_on = metrics.enable(True)
+    try:
+        list(DeviceFeed(iter(fs_blocks), device=CPU))
+    finally:
+        metrics.enable(was_on)
+    spans = metrics.drain().spans
+    assert [s.name for s in spans].count("feed.fill") == 4
 
 
 def test_feed_propagates_errors():

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from tpu_ofdm_torch.stream.executor import _NARROW
-from tpu_ofdm_torch.utils.metrics import PerfCounters
+from tpu_ofdm_torch.utils import metrics
 
 _END = object()
 _SLOTS = 2
@@ -65,8 +65,9 @@ class _Slot:
         """A pinned (shape, dtype) view of the buffer, once it is free."""
         # wait until its last copy has left it: polled, not a CUDA sync,
         # so a consumer's push under sync-debug "error" is not disturbed
-        while self.copied is not None and not self.copied.query():
-            time.sleep(0.0002)
+        with metrics.span("feed.slot_wait"):
+            while self.copied is not None and not self.copied.query():
+                time.sleep(0.0002)
         nbytes = int(np.prod(shape)) * dtype.itemsize
         if self.buf is None or self.buf.numel() < nbytes:
             self.buf = None
@@ -83,9 +84,11 @@ class DeviceFeed:
 
     `device` is where blocks go: the card unless the caller names the CPU
     (where torch has no card, construction raises).  Errors of the source
-    reach the consumer.  `counters` times, on the worker thread, "fill"
-    (the source's read and convert into the staging buffer).  `close()`
-    stops the worker of a feed that is not drained.
+    reach the consumer.  Spans (utils.metrics): "feed.wait", the consumer
+    blocked on the queue; on the worker thread "feed.slot_wait" (the poll
+    for a free pinned buffer), "feed.fill" (the source's read and convert
+    into the staging buffer) and "feed.h2d" (issuing the copy and its
+    events).  `close()` stops the worker of a feed that is not drained.
     """
 
     def __init__(self, source: Iterable, depth: int = 3, device="cuda"):
@@ -94,7 +97,6 @@ class DeviceFeed:
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._err: Exception | None = None
         self._stop = threading.Event()
-        self.counters = PerfCounters()
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
             self._slots = [_Slot() for _ in range(_SLOTS)]
@@ -145,8 +147,9 @@ class DeviceFeed:
                 if not self._put(staged):
                     return
 
-    def _fill(self, fill, host: np.ndarray) -> bool:
-        with self.counters.stage("fill", items=host.size):
+    @staticmethod
+    def _fill(fill, host: np.ndarray) -> bool:
+        with metrics.span("feed.fill"):
             return fill(host)
 
     def _stage_cpu(self, shape, dtype, planes: bool, fill):
@@ -164,20 +167,22 @@ class DeviceFeed:
         if not self._fill(fill, host.numpy()):
             return None
         s = self._stream
-        dev = torch.empty(shape, dtype=dtype, device=self.device)
-        dev.copy_(host, non_blocking=True)
-        slot.copied = torch.cuda.Event()
-        slot.copied.record(s)
-        if planes:
-            dev = torch.complex(dev[0], dev[1])
-        ready = torch.cuda.Event()
-        ready.record(s)
+        with metrics.span("feed.h2d"):
+            dev = torch.empty(shape, dtype=dtype, device=self.device)
+            dev.copy_(host, non_blocking=True)
+            slot.copied = torch.cuda.Event()
+            slot.copied.record(s)
+            if planes:
+                dev = torch.complex(dev[0], dev[1])
+            ready = torch.cuda.Event()
+            ready.record(s)
         return dev, ready
 
     # --- consumer ------------------------------------------------------------
     def __iter__(self) -> Iterator[torch.Tensor]:
         while True:
-            item = self._q.get()
+            with metrics.span("feed.wait"):
+                item = self._q.get()
             if item is _END:
                 if self._err is not None:
                     raise self._err

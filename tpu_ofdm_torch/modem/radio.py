@@ -17,6 +17,7 @@ from tpu_ofdm_torch.modem.rx_stream import RxStreamOut, rx_stream_block
 from tpu_ofdm_torch.modem.tx_stream import (TxStreamIn, TxStreamOut,
                                             tx_stream_block)
 from tpu_ofdm_torch.stream.block import Block
+from tpu_ofdm_torch.utils import metrics
 
 
 class RadioOut(NamedTuple):
@@ -38,7 +39,8 @@ def ofdm_radio(spec: OfdmSpec, stream_cfg: StreamConfig,
     def apply(state, x):
         tx_in, rx_samples = x
         ts, rs = state
-        ts, tout = tx.apply(ts, TxStreamIn(*tx_in))
+        with metrics.span("radio.tx"):
+            ts, tout = tx.apply(ts, TxStreamIn(*tx_in))
         rs, rout = rx.apply(rs, rx_samples)
         return (ts, rs), RadioOut(tout, rout)
 

@@ -42,6 +42,7 @@ from tpu_ofdm_torch.ops.equalizer import (equalize_pilot_phase,
 from tpu_ofdm_torch.ops.header import parse_header_bits
 from tpu_ofdm_torch.ops.sync import derotate, detect_frames
 from tpu_ofdm_torch.ops.transform import ofdm_fft
+from tpu_ofdm_torch.utils import metrics
 from tpu_ofdm_torch.utils.bits import bits_to_bytes
 
 
@@ -193,16 +194,20 @@ def rx_block(
     nv = x.shape[-1] + (0 if head is None else head.shape[-1])
     if own_hi is None:
         own_hi = nv
-    det = detect_frames(spec, x, max_frames, head=head)
-    owned = det.valid & (det.start >= own_lo) & (det.start < own_hi)
-    F = spec.max_frame_len
-    # clamp so invalid slots still gather in range
-    gstart = det.start.clamp(0, max(nv - F, 0))
-    wins = derotate(gather_windows(x, gstart, F, head=head), det.fine_cfo,
-                    spec.fft_len)
-    lead = wins.shape[:-1]                      # ([B,] K)
-    flat = demod_frame(spec, wins.reshape(-1, F), equalizer, output)
-    frames = FrameResult(*(f.reshape(*lead, *f.shape[1:]) for f in flat))
-    # a slot is valid only if owned AND acquisition confirmed AND header ok
-    valid = owned & frames.sync_ok & frames.hdr_ok
+    with metrics.span("rx.detect"):
+        det = detect_frames(spec, x, max_frames, head=head)
+    with metrics.span("rx.demod"):
+        owned = det.valid & (det.start >= own_lo) & (det.start < own_hi)
+        F = spec.max_frame_len
+        # clamp so invalid slots still gather in range
+        gstart = det.start.clamp(0, max(nv - F, 0))
+        wins = derotate(gather_windows(x, gstart, F, head=head),
+                        det.fine_cfo, spec.fft_len)
+        lead = wins.shape[:-1]                      # ([B,] K)
+        flat = demod_frame(spec, wins.reshape(-1, F), equalizer, output)
+        frames = FrameResult(*(f.reshape(*lead, *f.shape[1:]) for f in flat))
+        # a slot is valid only if owned AND acquisition confirmed AND
+        # header ok
+        valid = owned & frames.sync_ok & frames.hdr_ok
+    metrics.count("rx.slots", lead.numel())
     return RxBlockResult(frames, det.start, det.fine_cfo, valid)

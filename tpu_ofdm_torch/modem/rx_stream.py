@@ -20,6 +20,7 @@ import torch
 from tpu_ofdm_torch.config import OfdmSpec, StreamConfig
 from tpu_ofdm_torch.modem.rx import RxBlockResult, rx_block
 from tpu_ofdm_torch.stream.block import Block
+from tpu_ofdm_torch.utils import metrics
 
 
 class RxStreamOut(NamedTuple):
@@ -80,43 +81,61 @@ def carry_to_jax(state) -> tuple[np.ndarray, np.ndarray]:
             np.asarray(step.cpu().numpy(), dtype=np.int32))
 
 
+def sink_wait(o) -> int:
+    """The output's block_index, read first where spans are on, as the
+    span "sink.wait": its readback waits for everything queued on the
+    stream before it, as a sink's first copy does, so the copies after it
+    are timed apart from the wait."""
+    with metrics.span("sink.wait") as wait:
+        wait.push = step = int(o.block_index)
+    return step
+
+
 def collect_frames(outs, block_size: int | None = None,
                    hist: int | None = None) -> list[dict]:
     """Flatten a list of RxStreamOut (one per step) into one dict per valid
     frame, on the host.  With block_size and hist given, each frame carries
     "abs_start", the absolute sample index of its detected start; with a
     soft-output receiver, "llr" holds the LLRs of the wire bytes (payload
-    and CRC32)."""
+    and CRC32).  Spans "sink.wait" (spans on only), "sink.copy" and
+    "sink.unpack" a step; counter "rx.frames"."""
     frames = []
+    traced = metrics.enabled()
     for o in outs:
-        valid = o.result.valid.cpu().numpy()
-        if not valid.any():
-            continue
-        step = int(o.block_index)
-        f = o.result.frames
-        host = {name: getattr(f, name).cpu().numpy() for name in (
-            "payload", "payload_len", "frame_num", "crc_ok", "hdr_ok",
-            "evm", "int_cfo")}
-        starts = o.result.starts.cpu().numpy()
-        fine_cfo = o.result.fine_cfo.cpu().numpy()
-        llr = f.llr.cpu().numpy() if f.llr.shape[-1] else None
-        for i in np.nonzero(valid)[0]:
-            plen = int(host["payload_len"][i])
-            rec_start = int(starts[i])
-            abs_start = (step * block_size - hist + rec_start
-                         if block_size is not None and hist is not None
-                         else rec_start)
-            frames.append({
-                "payload": bytes(host["payload"][i][:plen]),
-                "payload_len": plen,
-                "frame_num": int(host["frame_num"][i]),
-                "crc_ok": bool(host["crc_ok"][i]),
-                "hdr_ok": bool(host["hdr_ok"][i]),
-                "evm": float(host["evm"][i]),
-                "int_cfo": int(host["int_cfo"][i]),
-                "fine_cfo": float(fine_cfo[i]),
-                "abs_start": abs_start,
-            })
-            if llr is not None:
-                frames[-1]["llr"] = llr[i][: (plen + 4) * 8]
+        step = sink_wait(o) if traced else None
+        with metrics.span("sink.copy", push=step):
+            valid = o.result.valid.cpu().numpy()
+            if not valid.any():
+                continue
+            if step is None:
+                step = int(o.block_index)
+            f = o.result.frames
+            host = {name: getattr(f, name).cpu().numpy() for name in (
+                "payload", "payload_len", "frame_num", "crc_ok", "hdr_ok",
+                "evm", "int_cfo")}
+            starts = o.result.starts.cpu().numpy()
+            fine_cfo = o.result.fine_cfo.cpu().numpy()
+            llr = f.llr.cpu().numpy() if f.llr.shape[-1] else None
+        with metrics.span("sink.unpack", push=step):
+            rows = np.nonzero(valid)[0]
+            metrics.count("rx.frames", len(rows))
+            for i in rows:
+                plen = int(host["payload_len"][i])
+                rec_start = int(starts[i])
+                abs_start = (step * block_size - hist + rec_start
+                             if block_size is not None and hist is not None
+                             else rec_start)
+                frames.append({
+                    "payload": bytes(host["payload"][i][:plen]),
+                    "payload_len": plen,
+                    "frame_num": int(host["frame_num"][i]),
+                    "crc_ok": bool(host["crc_ok"][i]),
+                    "hdr_ok": bool(host["hdr_ok"][i]),
+                    "evm": float(host["evm"][i]),
+                    "int_cfo": int(host["int_cfo"][i]),
+                    "fine_cfo": float(fine_cfo[i]),
+                    "abs_start": abs_start,
+                })
+                if llr is not None:
+                    frames[-1]["llr"] = llr[i][: (plen + 4) * 8]
     return frames

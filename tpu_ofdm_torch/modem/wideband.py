@@ -22,7 +22,7 @@ import torch
 
 from tpu_ofdm_torch.config import OfdmSpec, StreamConfig
 from tpu_ofdm_torch.modem.rx import RxBlockResult, rx_block
-from tpu_ofdm_torch.modem.rx_stream import history_len
+from tpu_ofdm_torch.modem.rx_stream import history_len, sink_wait
 from tpu_ofdm_torch.spectrum.channelizer import (
     channelize_stream,
     device_poly,
@@ -30,6 +30,7 @@ from tpu_ofdm_torch.spectrum.channelizer import (
     stream_tail_len,
 )
 from tpu_ofdm_torch.stream.block import Block
+from tpu_ofdm_torch.utils import metrics
 
 
 class WidebandRxOut(NamedTuple):
@@ -68,9 +69,10 @@ def wideband_rx_block(
 
     def apply(state, x):
         ch_tail, rx_hist, step = state
-        chans, new_tail = channelize_stream(x, ch_tail, n_chan,
-                                            poly(x.device))
-        chans = chans.t().contiguous()                      # (n_chan, S)
+        with metrics.span("wideband.channelize"):
+            chans, new_tail = channelize_stream(x, ch_tail, n_chan,
+                                                poly(x.device))
+            chans = chans.t().contiguous()                  # (n_chan, S)
         res = rx_block(spec, chans, K, own_lo=0, own_hi=S, head=rx_hist,
                        equalizer=equalizer)
         if S >= H:
@@ -106,26 +108,35 @@ def carry_to_jax(state):
 
 def collect_wideband_frames(outs, per_chan_block: int, spec: OfdmSpec):
     """Flatten WidebandRxOut steps -> frame dicts with channel + abs_start
-    in PER-CHANNEL sample units (host-side)."""
+    in PER-CHANNEL sample units (host-side).  Spans and counter as
+    rx_stream.collect_frames."""
     H = history_len(spec)
     frames = []
+    traced = metrics.enabled()
     for o in outs:
-        valid = o.result.valid.cpu().numpy()          # (n_chan, K)
-        if not valid.any():
-            continue
-        step = int(o.block_index)
-        f = o.result.frames
-        host = {name: getattr(f, name).cpu().numpy() for name in (
-            "payload", "payload_len", "frame_num", "crc_ok", "evm")}
-        starts = o.result.starts.cpu().numpy()
-        for c, k in zip(*np.nonzero(valid)):
-            plen = int(host["payload_len"][c, k])
-            frames.append({
-                "channel": int(c),
-                "payload": bytes(host["payload"][c, k][:plen]),
-                "frame_num": int(host["frame_num"][c, k]),
-                "crc_ok": bool(host["crc_ok"][c, k]),
-                "evm": float(host["evm"][c, k]),
-                "abs_start": step * per_chan_block - H + int(starts[c, k]),
-            })
+        step = sink_wait(o) if traced else None
+        with metrics.span("sink.copy", push=step):
+            valid = o.result.valid.cpu().numpy()          # (n_chan, K)
+            if not valid.any():
+                continue
+            if step is None:
+                step = int(o.block_index)
+            f = o.result.frames
+            host = {name: getattr(f, name).cpu().numpy() for name in (
+                "payload", "payload_len", "frame_num", "crc_ok", "evm")}
+            starts = o.result.starts.cpu().numpy()
+        with metrics.span("sink.unpack", push=step):
+            slots = np.nonzero(valid)
+            metrics.count("rx.frames", len(slots[0]))
+            for c, k in zip(*slots):
+                plen = int(host["payload_len"][c, k])
+                frames.append({
+                    "channel": int(c),
+                    "payload": bytes(host["payload"][c, k][:plen]),
+                    "frame_num": int(host["frame_num"][c, k]),
+                    "crc_ok": bool(host["crc_ok"][c, k]),
+                    "evm": float(host["evm"][c, k]),
+                    "abs_start": (step * per_chan_block - H
+                                  + int(starts[c, k])),
+                })
     return frames

@@ -28,6 +28,7 @@ from typing import Iterator
 import numpy as np
 
 from tpu_ofdm_torch.runtime import build as _build
+from tpu_ofdm_torch.utils import metrics
 
 _lock = threading.Lock()
 _engine: tuple | None = None   # (library or None,) once decided
@@ -238,8 +239,9 @@ class FileStreamer:
     caller's planes instead, which is how DeviceFeed fills its pinned
     buffers in one host pass.  `last_times` is the last block's (read,
     convert) seconds: the wait for the reader thread's bytes (native) or
-    the file read (numpy), then the conversion into the planes.  Close it
-    (or use it in a `with`) to stop the reader thread.
+    the file read (numpy), then the conversion into the planes, the same
+    clock reads as its spans "file.read" and "file.convert" (utils.metrics).
+    Close it (or use it in a `with`) to stop the reader thread.
     """
 
     def __init__(self, path: str, fmt: str = "f32c", block_size: int = 1 << 17,
@@ -291,30 +293,31 @@ class FileStreamer:
         if self._done:
             return 0
         want = self.block * self.item
-        t0 = time.perf_counter()
-        if self._rd is not None:
-            lib = self._lib
-            while (self._ring.readable() < want
-                   and lib.reader_state(self._rd) == 0):
-                time.sleep(0.0005)
-            state = lib.reader_state(self._rd)
-            if state < 0:
-                raise OSError(-state, os.strerror(-state), self.path)
-            n = min(want, self._ring.readable())
-            raw = self._ring.peek(n)
-        else:
-            raw = np.frombuffer(self._fh.read(want), dtype=np.uint8)
-            n = len(raw)
-        t1 = time.perf_counter()
-        n_samp = n // self.item
-        _planar_into(self._lib, raw, n_samp, self.fmt, self.scale, re, im)
-        if self._rd is not None:
-            self._ring.consume(n)
-        if n_samp < self.block:
-            re[n_samp:] = 0
-            im[n_samp:] = 0
-            self._done = True
-        self.last_times = (t1 - t0, time.perf_counter() - t1)
+        with metrics.timed("file.read") as read:
+            if self._rd is not None:
+                lib = self._lib
+                while (self._ring.readable() < want
+                       and lib.reader_state(self._rd) == 0):
+                    time.sleep(0.0005)
+                state = lib.reader_state(self._rd)
+                if state < 0:
+                    raise OSError(-state, os.strerror(-state), self.path)
+                n = min(want, self._ring.readable())
+                raw = self._ring.peek(n)
+            else:
+                raw = np.frombuffer(self._fh.read(want), dtype=np.uint8)
+                n = len(raw)
+        with metrics.timed("file.convert") as convert:
+            n_samp = n // self.item
+            _planar_into(self._lib, raw, n_samp, self.fmt, self.scale, re,
+                         im)
+            if self._rd is not None:
+                self._ring.consume(n)
+            if n_samp < self.block:
+                re[n_samp:] = 0
+                im[n_samp:] = 0
+                self._done = True
+        self.last_times = (read.seconds, convert.seconds)
         return n_samp
 
     def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from tpu_ofdm_torch.stream.block import Block
+from tpu_ofdm_torch.utils import metrics
 
 # numpy types as JAX (64-bit mode off) and so the JAX executor take them
 _NARROW = {np.dtype(np.float64): np.float32,
@@ -124,7 +125,9 @@ class StreamExecutor:
                     raise ValueError(f"block on {leaf.device}, executor "
                                      f"on {self.device}")
         t0 = time.perf_counter()
-        self.state, out = self.block.apply(self.state, block_samples)
+        with metrics.span("executor.push",
+                          push=self.samples_in // self.block_size):
+            self.state, out = self.block.apply(self.state, block_samples)
         self.samples_in += self.block_size
         self.wall_time += time.perf_counter() - t0
         return out
