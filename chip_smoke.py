@@ -151,7 +151,16 @@ in order -- any failure raises and the script exits non-zero:
               radio loopback at the config (448 PDUs a push, channel_block
               with its CFO or taps at 25 dB, 30 dB at config 3), every PDU
               back once, phase 8's gate
- 14. report   one JSON line of per-kernel results (sc_detect and gather
+ 14. graphs   rx_block's CUDA graphs (modem/rx.py StepGraphs): after two
+              warm-up pushes (eager, then the capture), 6 consecutive
+              pushes of phase 4's stream, configs 1-3 (config 3 also with
+              simpledfe), config 4's wideband receiver and the radio (hard
+              and soft/simpledfe) replay their steps; each step's every
+              output bit-identical to rx_block_eager (the function the
+              graphs are captured from) on the same inputs, and unchanged
+              after the later pushes have been enqueued; the replay share
+              (counters rx.graph_replay / rx.graph_eager) must be 100%
+ 15. report   one JSON line of per-kernel results (sc_detect and gather
               also per config of phase 13), the nvidia-smi line, and the
               final {"ok": true, ...} line
 """
@@ -198,6 +207,7 @@ from tpu_ofdm_torch.kernels import psd as kpsd
 from tpu_ofdm_torch.kernels import sc_detect as kdetect
 from tpu_ofdm_torch.kernels import sc_metric as kmetric
 from tpu_ofdm_torch.kernels import scan as kscan
+from tpu_ofdm_torch.modem import rx as mrx
 from tpu_ofdm_torch.modem.radio import ofdm_radio
 from tpu_ofdm_torch.modem.rx import rx_block
 from tpu_ofdm_torch.modem.rx_stream import (collect_frames, history_len,
@@ -2758,8 +2768,11 @@ def shard_inputs(*names, call: int = 1):
     def stand_in(name, fn):
         def spy(*a, **kw):
             if calls[name] == call:
+                # `out` (the buffer a replayed step has the kernel write
+                # into) is not an input
                 seen[name] = (tuple(map(_cloned, a)),
-                              {k: _cloned(v) for k, v in kw.items()})
+                              {k: _cloned(v) for k, v in kw.items()
+                               if k != "out"})
             calls[name] += 1
             try:
                 return fn(*a, **kw)
@@ -3402,6 +3415,126 @@ def phase_configs(dev, tag: str) -> dict:
     return {"launches": dict(counts), "errors": errs, "configs": runs}
 
 
+# -- 14. the step's CUDA graphs against the eager step ------------------------
+
+GRAPH_WARM = 2           # pushes before the checked ones: eager, then capture
+GRAPH_PUSHES = 6         # checked pushes a path
+GRAPH_FIELDS = (*mrx.FrameResult._fields, "starts", "fine_cfo", "valid")
+
+
+class CheckedSteps:
+    """Stands in for rx.STEP_GRAPHS: each call goes to the real one; a
+    copy of its result is taken as it returns, and rx_block_eager runs on
+    the same arguments.  Keeps (result, copy, eager result) per call."""
+
+    def __init__(self, steps):
+        self.steps, self.calls = steps, []
+
+    def run(self, spec, x, *args):
+        got = self.steps.run(spec, x, *args)
+        copy = [t.clone() for t in mrx._leaves(got)]
+        self.calls.append((got, copy, mrx.rx_block_eager(spec, x, *args)))
+        return got
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(mrx._bytes(a), mrx._bytes(b)))
+
+
+def graph_path(what: str, push) -> dict:
+    """push(i) enqueues push i of a path.  GRAPH_WARM pushes, then
+    GRAPH_PUSHES under CheckedSteps with the counters on; then every
+    step's result against the eager one and against its own copy."""
+    for i in range(GRAPH_WARM):
+        push(i)
+    was = metrics.enable(True)
+    metrics.drain()
+    steps = mrx.STEP_GRAPHS
+    checked = mrx.STEP_GRAPHS = CheckedSteps(steps)
+    try:
+        for i in range(GRAPH_WARM, GRAPH_WARM + GRAPH_PUSHES):
+            push(i)
+    finally:
+        mrx.STEP_GRAPHS = steps
+        counters = metrics.drain().counters
+        metrics.enable(was)
+    frames = 0
+    for j, (got, copy, want) in enumerate(checked.calls):
+        for name, a, c, w in zip(GRAPH_FIELDS, mrx._leaves(got), copy,
+                                 mrx._leaves(want)):
+            if not same_bits(a, w):
+                raise AssertionError(f"{what}: step {j}: {name} replayed "
+                                     "differs from the eager step")
+            if not same_bits(a, c):
+                raise AssertionError(f"{what}: step {j}: {name} changed "
+                                     "after the later pushes")
+        frames += int(got.valid.sum())
+    replay = counters.get("rx.graph_replay", 0)
+    eager = counters.get("rx.graph_eager", 0)
+    if not frames or replay != len(checked.calls) or eager:
+        raise AssertionError(f"{what}: {len(checked.calls)} steps, {frames} "
+                             f"frames, {replay} replayed, {eager} eager")
+    log(f"{what}: {len(checked.calls)} consecutive steps ({frames} frames) "
+        f"replayed, every output field bit-identical to rx_block_eager and "
+        f"unchanged after the later pushes; replay share {replay}/"
+        f"{replay + eager}")
+    return {"steps": len(checked.calls), "frames": frames,
+            "replay": replay, "eager": eager}
+
+
+def phase_graphs(dev, tag: str) -> dict:
+    """Phase 14 over the headline stream, configs 1-3, config 4 and the
+    radio."""
+    sc = StreamConfig(block_size=BLOCK, max_frames_per_block=SLOTS)
+    runs = {}
+
+    def stream(what, spec, blocks, **options):
+        ex = StreamExecutor(rx_stream_block(spec, sc, **options), BLOCK,
+                            device=dev)
+        runs[what] = graph_path(
+            what, lambda i: ex.push(blocks[i % len(blocks)]))
+
+    blocks, _ = staged_blocks(HEADLINE.spec, 4, dev, seed=0)
+    stream("graphs headline", HEADLINE.spec, blocks)
+    for k, bc in enumerate(BASELINES):
+        spec = bc.cfg.spec
+        frame = baseline_frame(bc, baseline_payload(spec, k))
+        blocks, _ = staged_blocks(spec, 4, dev, seed=30 + k, frame=frame)
+        stream(f"graphs {bc.name}", spec, blocks, output=bc.output)
+        if bc.output == "soft":
+            stream(f"graphs {bc.name} simpledfe", spec, blocks,
+                   output=bc.output, equalizer="simpledfe")
+    del blocks
+    torch.cuda.empty_cache()
+
+    block = wideband_capture(dev)
+    ex = wideband_executor(dev)
+    runs["graphs wideband"] = graph_path("graphs wideband",
+                                         lambda i: ex.push(block))
+    del block, ex
+    torch.cuda.empty_cache()
+
+    inputs, _ = radio_traffic(HEADLINE.spec, dev, seed=90)
+    for name, options in (("hard", {}), ("soft/simpledfe", dict(
+            equalizer="simpledfe", output="soft"))):
+        chan = radio_channel(dev)
+        ex = radio_executor(dev, **options)
+        air = [torch.zeros(BLOCK, dtype=torch.complex64, device=dev)]
+
+        def push(i):
+            out = ex.push((inputs[i % len(inputs)], air[0]))
+            air[0] = chan.push(out.tx.samples)
+
+        runs[f"graphs radio {name}"] = graph_path(f"graphs radio {name}",
+                                                  push)
+    torch.cuda.empty_cache()
+    log(f"graphs: {sum(r['steps'] for r in runs.values())} steps over "
+        f"{len(runs)} paths replayed bit-identical to the eager step  "
+        f"[{tag}]")
+    return runs
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -3416,6 +3549,7 @@ def main():
             phase_shard(dev, smi)]
     configs = phase_configs(dev, smi)
     runs.append(configs)
+    phase_graphs(dev, smi)
     report = []
     for name, res in kernels.items():
         source, replaces = SOURCES[name]

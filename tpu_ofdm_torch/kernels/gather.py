@@ -32,9 +32,12 @@ def gather_windows_plain(x: torch.Tensor, starts: torch.Tensor, length: int,
 
 
 def gather_windows(x: torch.Tensor, starts: torch.Tensor, length: int,
-                   head: torch.Tensor | None = None) -> torch.Tensor:
+                   head: torch.Tensor | None = None,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """(K, length) complex64 windows of [head | x] at int32 `starts` (K,);
-    batched, (B, K, length) from x (B, n), head (B, h), starts (B, K)."""
+    batched, (B, K, length) from x (B, n), head (B, h), starts (B, K).
+    `out`, where given, is the buffer they are written to and returned
+    in."""
     check_vector(x, "x", torch.complex64, ndims=(1, 2))
     check_vector(starts, "starts", torch.int32, x.device, ndims=(x.ndim,))
     if head is not None:
@@ -43,12 +46,21 @@ def gather_windows(x: torch.Tensor, starts: torch.Tensor, length: int,
         if t is not None and t.shape[:-1] != x.shape[:-1]:
             raise ValueError(f"{name} {tuple(t.shape)} and x "
                              f"{tuple(x.shape)} differ in batch")
-    if x.device.type == "cpu":
-        return gather_windows_plain(x, starts, length, head)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gather_windows: unsupported device {x.device}")
-    out = torch.empty((*starts.shape, length), dtype=torch.complex64,
-                      device=x.device)
+    if out is None:
+        if x.device.type == "cpu":
+            return gather_windows_plain(x, starts, length, head)
+        out = torch.empty((*starts.shape, length), dtype=torch.complex64,
+                          device=x.device)
+    else:
+        check_vector(out, "out", torch.complex64, x.device,
+                     ndims=(x.ndim + 1,))
+        if out.shape != (*starts.shape, length):
+            raise ValueError(f"out {tuple(out.shape)}: expected "
+                             f"{(*starts.shape, length)}")
+    if x.device.type == "cpu":
+        return out.copy_(gather_windows_plain(x, starts, length, head))
     launch(library(), x, starts, head, out)
     gather_windows.launches += 1
     return out

@@ -108,9 +108,13 @@ def kernel_form(L: int, cp: int) -> str:
 
 
 def sc_detect_rows(x: torch.Tensor, L: int, cp: int,
-                   head: torch.Tensor | None = None):
+                   head: torch.Tensor | None = None,
+                   out: torch.Tensor | None = None):
     """Row summaries over the virtual buffer [head | x]: complex64, x (n,)
-    with head (h,), or a batch x (B, n) with head (B, h)."""
+    with head (h,), or a batch x (B, n) with head (B, h).  `out`, where
+    given, is the (6, B, rows) float32 buffer the six are written to (B 1
+    for an unbatched x; smarg's int32 bits in row 1), and they are returned
+    as views of it."""
     check_vector(x, "x", torch.complex64, ndims=(1, 2))
     if head is not None:
         check_vector(head, "head", torch.complex64, x.device, ndims=(x.ndim,))
@@ -124,22 +128,33 @@ def sc_detect_rows(x: torch.Tensor, L: int, cp: int,
     if nv >= 1 << 30:
         raise ValueError(f"buffer of {nv} samples: positions must stay "
                          "below the selection sentinel 2^30")
-    if x.device.type == "cpu":
-        return sc_detect_rows_plain(x, L, cp, head)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"sc_detect_rows: unsupported device {x.device}")
     rows = -(-nv // ROW)
     B = x.shape[0] if x.ndim == 2 else 1
-    out = torch.empty((6, B, rows), dtype=torch.float32, device=x.device)
-    library().launch(
-        "sc_detect_launch", x.device, complex_ptr(head), h, h,
-        complex_ptr(x), x.shape[-1], x.shape[-1], B, L, cp, out.data_ptr(),
-        rows,
-    )
-    sc_detect_rows.launches += 1
-    sc_detect_rows.forms[kernel_form(L, cp)] += 1
-    out = out.reshape(6, *x.shape[:-1], rows)
-    return (out[0], out[1].view(torch.int32), out[2], out[3], out[4], out[5])
+    if out is None:
+        if x.device.type == "cpu":
+            return sc_detect_rows_plain(x, L, cp, head)
+        out = torch.empty((6, B, rows), dtype=torch.float32, device=x.device)
+    else:
+        check_vector(out, "out", torch.float32, x.device, ndims=(3,))
+        if out.shape != (6, B, rows):
+            raise ValueError(f"out {tuple(out.shape)}: expected "
+                             f"{(6, B, rows)}")
+    out6 = out.view(6, *x.shape[:-1], rows)
+    views = (out6[0], out6[1].view(torch.int32), *out6[2:])
+    if x.device.type == "cpu":
+        for v, got in zip(views, sc_detect_rows_plain(x, L, cp, head)):
+            v.copy_(got)
+    else:
+        library().launch(
+            "sc_detect_launch", x.device, complex_ptr(head), h, h,
+            complex_ptr(x), x.shape[-1], x.shape[-1], B, L, cp,
+            out.data_ptr(), rows,
+        )
+        sc_detect_rows.launches += 1
+        sc_detect_rows.forms[kernel_form(L, cp)] += 1
+    return views
 
 
 sc_detect_rows.launches = 0  # kernel launches since the last reset

@@ -11,7 +11,9 @@ The static two-pass design of the JAX package carries over:
 Where JAX vmapped a one-frame `demod_frame` over the slots, `demod_frame`
 here is written for a batch (K, ...) of slots; every reduction runs over
 one slot's own axes.  Everything is fixed capacity plus validity masks, so
-the whole block is enqueued on the device without waiting on the host.
+the whole block is enqueued on the device without waiting on the host, and
+on the card the torch-op chains of a step shape are captured once as CUDA
+graphs and replayed (StepGraphs).
 
 `equalizer` is "pilot_phase" (the default) or "simpledfe"; `output` is
 "hard" (the default) or "soft", which adds max-log LLRs of the payload bits
@@ -25,7 +27,10 @@ leads with (B, K).
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -40,7 +45,9 @@ from tpu_ofdm_torch.ops.crc import check_crc32
 from tpu_ofdm_torch.ops.equalizer import (equalize_pilot_phase,
                                           equalize_simpledfe)
 from tpu_ofdm_torch.ops.header import parse_header_bits
-from tpu_ofdm_torch.ops.sync import derotate, detect_frames
+from tpu_ofdm_torch.kernels.sc_detect import ROW
+from tpu_ofdm_torch.ops.sync import (Detections, derotate, detect_rows,
+                                     select_frames)
 from tpu_ofdm_torch.ops.transform import ofdm_fft
 from tpu_ofdm_torch.utils import metrics
 from tpu_ofdm_torch.utils.bits import bits_to_bytes
@@ -169,6 +176,36 @@ class RxBlockResult(NamedTuple):
     valid: torch.Tensor      # ([B,] K) bool: slot holds an accepted detection
 
 
+class _Selected(NamedTuple):
+    det: Detections
+    gstart: torch.Tensor     # ([B,] K) int32 window starts, clamped in range
+
+
+def _select(spec: OfdmSpec, rows6, nv: int, max_frames: int) -> _Selected:
+    """The detection's selection over sc_detect's row summaries, and the
+    starts the slot windows are gathered at."""
+    det = select_frames(spec, rows6, nv, max_frames)
+    # clamp so invalid slots still gather in range
+    return _Selected(det, det.start.clamp(0, max(nv - spec.max_frame_len,
+                                                 0)))
+
+
+def _demod(spec: OfdmSpec, wins: torch.Tensor, sel: _Selected, own_lo: int,
+           own_hi: int, equalizer: str, output: str) -> RxBlockResult:
+    """Demodulate the gathered slot windows ([B,] K, F) of the detections
+    `sel`; accept those in the ownership window."""
+    det = sel.det
+    owned = det.valid & (det.start >= own_lo) & (det.start < own_hi)
+    wins = derotate(wins, det.fine_cfo, spec.fft_len)
+    lead = wins.shape[:-1]                      # ([B,] K)
+    flat = demod_frame(spec, wins.reshape(-1, spec.max_frame_len), equalizer,
+                       output)
+    frames = FrameResult(*(f.reshape(*lead, *f.shape[1:]) for f in flat))
+    # a slot is valid only if owned AND acquisition confirmed AND header ok
+    valid = owned & frames.sync_ok & frames.hdr_ok
+    return RxBlockResult(frames, det.start, det.fine_cfo, valid)
+
+
 def rx_block(
     spec: OfdmSpec,
     x: torch.Tensor,
@@ -189,25 +226,252 @@ def rx_block(
 
     Ownership window [own_lo, own_hi): only detections whose start falls in
     it are accepted (the streaming receiver's exactly-once rule).
-    `equalizer` and `output` as in demod_frame."""
+    `equalizer` and `output` as in demod_frame.
+
+    On the card the step replays its captured CUDA graphs (STEP_GRAPHS);
+    every tensor it returns is its own, never a graph's buffer.  Spans
+    "rx.detect" and "rx.demod"; counters "rx.slots", and on the card
+    "rx.graph_replay" or "rx.graph_eager"."""
     _check_options(equalizer, output)
-    nv = x.shape[-1] + (0 if head is None else head.shape[-1])
     if own_hi is None:
-        own_hi = nv
+        own_hi = x.shape[-1] + (0 if head is None else head.shape[-1])
+    res = STEP_GRAPHS.run(spec, x, max_frames, own_lo, own_hi, head,
+                          equalizer, output)
+    metrics.count("rx.slots", res.valid.numel())
+    return res
+
+
+def rx_block_eager(spec: OfdmSpec, x: torch.Tensor, max_frames: int,
+                   own_lo: int, own_hi: int, head: torch.Tensor | None,
+                   equalizer: str, output: str) -> RxBlockResult:
+    """rx_block's step enqueued op by op (arguments as rx_block's, own_hi
+    given): what the CPU runs, and the card where the step is not
+    replayed."""
+    nv = x.shape[-1] + (0 if head is None else head.shape[-1])
     with metrics.span("rx.detect"):
-        det = detect_frames(spec, x, max_frames, head=head)
+        sel = _select(spec, detect_rows(spec, x, head), nv, max_frames)
     with metrics.span("rx.demod"):
-        owned = det.valid & (det.start >= own_lo) & (det.start < own_hi)
-        F = spec.max_frame_len
-        # clamp so invalid slots still gather in range
-        gstart = det.start.clamp(0, max(nv - F, 0))
-        wins = derotate(gather_windows(x, gstart, F, head=head),
-                        det.fine_cfo, spec.fft_len)
-        lead = wins.shape[:-1]                      # ([B,] K)
-        flat = demod_frame(spec, wins.reshape(-1, F), equalizer, output)
-        frames = FrameResult(*(f.reshape(*lead, *f.shape[1:]) for f in flat))
-        # a slot is valid only if owned AND acquisition confirmed AND
-        # header ok
-        valid = owned & frames.sync_ok & frames.hdr_ok
-    metrics.count("rx.slots", lead.numel())
-    return RxBlockResult(frames, det.start, det.fine_cfo, valid)
+        wins = gather_windows(x, sel.gstart, spec.max_frame_len, head=head)
+        return _demod(spec, wins, sel, own_lo, own_hi, equalizer, output)
+
+
+# --- the step as CUDA graphs -------------------------------------------------
+#
+# Enqueued op by op, the selection and the demod are ~275 torch ops a step
+# whatever the number of frames, and the host's enqueuing of them, not the
+# card, sets the step's pace.  On the card each step shape captures the two
+# chains once as CUDA graphs and replays them.  sc_detect and gather stay
+# eager launches between the replays, as they read the caller's block and
+# history by pointer, which change every call: sc_detect writes into the
+# selection graph's input buffer, gather into the demod graph's.  The
+# demod graph packs every output into one flat byte buffer, which each call
+# copies out once, so a later replay cannot overwrite what an earlier call
+# returned.
+
+
+def _leaves(res: RxBlockResult) -> list[torch.Tensor]:
+    return [*res.frames, res.starts, res.fine_cfo, res.valid]
+
+
+def _from_leaves(leaves: list[torch.Tensor]) -> RxBlockResult:
+    n = len(FrameResult._fields)
+    return RxBlockResult(FrameResult(*leaves[:n]), *leaves[n:])
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """t's bytes, as a flat uint8 view (of a contiguous copy, where t is
+    not contiguous)."""
+    t = t.contiguous()
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    return t.reshape(-1).view(torch.uint8)
+
+
+class _Layout:
+    """Where each output tensor lies in the flat byte buffer: at an offset
+    aligned to ALIGN bytes, in a buffer a multiple of ALIGN bytes long, so
+    that the buffer views as each dtype and each tensor is a strided view
+    of one of those."""
+
+    ALIGN = 16
+
+    def __init__(self, leaves: list[torch.Tensor]):
+        self.fields = []     # (byte offset, bytes, dtype, shape, stride)
+        off = 0
+        for t in leaves:
+            n = t.numel() * t.element_size()
+            stride = torch.empty(t.shape, device="meta").stride()
+            self.fields.append((off, n, t.dtype, t.shape, stride))
+            off += -(-n // self.ALIGN) * self.ALIGN
+        self.nbytes = off
+        self.dtypes = {t.dtype for t in leaves}
+
+    def pack(self, leaves: list[torch.Tensor], flat: torch.Tensor) -> None:
+        """Copy the leaves into `flat`, all as bytes in one foreach copy."""
+        dst, src = [], []
+        for (off, n, *_), t in zip(self.fields, leaves):
+            if n:
+                dst.append(flat[off:off + n])
+                src.append(_bytes(t))
+        torch._foreach_copy_(dst, src)
+
+    def unpack(self, flat: torch.Tensor) -> list[torch.Tensor]:
+        """The leaves as views of `flat` (the fewest host ops: one view a
+        dtype, one as_strided a leaf)."""
+        typed = {dtype: flat.view(dtype) for dtype in self.dtypes}
+        return [typed[dtype].as_strided(shape, stride, off // dtype.itemsize)
+                for off, _, dtype, shape, stride in self.fields]
+
+
+class _Step:
+    """One step shape's two graphs and their static buffers."""
+
+    def __init__(self, calls: "CudaGraphCalls", spec: OfdmSpec,
+                 x: torch.Tensor, max_frames: int,
+                 head: torch.Tensor | None):
+        self.calls, self.spec = calls, spec
+        self.nv = x.shape[-1] + (0 if head is None else head.shape[-1])
+        batch = x.shape[:-1]
+        B = batch[0] if batch else 1
+        self.rows = torch.empty((6, B, -(-self.nv // ROW)),
+                                dtype=torch.float32, device=x.device)
+        self.wins = torch.empty((*batch, max_frames, spec.max_frame_len),
+                                dtype=torch.complex64, device=x.device)
+
+    def capture(self, x, max_frames, own_lo, own_hi, head, equalizer,
+                output) -> RxBlockResult:
+        """Run the step once, eagerly, on the capture stream (the warm-up
+        torch.cuda.graphs prescribes; this call's result), then capture
+        its two chains."""
+        spec, calls, dev = self.spec, self.calls, x.device
+        demod = (own_lo, own_hi, equalizer, output)
+        with calls.side(dev):
+            with metrics.span("rx.detect"):
+                rows6 = detect_rows(spec, x, head, out=self.rows)
+                sel = _select(spec, rows6, self.nv, max_frames)
+            with metrics.span("rx.demod"):
+                gather_windows(x, sel.gstart, spec.max_frame_len, head=head,
+                               out=self.wins)
+                res = _demod(spec, self.wins, sel, *demod)
+        leaves = _leaves(res)
+        calls.keep(leaves, dev)
+        self.layout = _Layout(leaves)
+        self.flat = torch.empty(self.layout.nbytes, dtype=torch.uint8,
+                                device=dev)
+        with calls.side(dev):
+            self.sel_graph, self.sel = calls.capture(
+                lambda: _select(spec, rows6, self.nv, max_frames))
+            self.demod_graph, _ = calls.capture(
+                lambda: self.layout.pack(
+                    _leaves(_demod(spec, self.wins, self.sel, *demod)),
+                    self.flat),
+                pool=self.sel_graph.pool())
+        return res
+
+    def replay(self, x, head) -> RxBlockResult:
+        with metrics.span("rx.detect"):
+            detect_rows(self.spec, x, head, out=self.rows)
+            self.sel_graph.replay()
+        with metrics.span("rx.demod"):
+            gather_windows(x, self.sel.gstart, self.spec.max_frame_len,
+                           head=head, out=self.wins)
+            self.demod_graph.replay()
+            return _from_leaves(self.layout.unpack(self.flat.clone()))
+
+
+class CudaGraphCalls:
+    """The CUDA calls the step's graphs rest on; the tests stand a CPU
+    version in."""
+
+    def __init__(self):
+        self._side: dict[torch.device, torch.cuda.Stream] = {}
+
+    def usable(self, x: torch.Tensor) -> bool:
+        """Whether the step on x may capture and replay: on the card, and
+        not inside another capture."""
+        return (x.device.type == "cuda"
+                and not torch.cuda.is_current_stream_capturing())
+
+    def stream(self, dev: torch.device) -> int:
+        """The current stream of `dev`."""
+        return torch._C._cuda_getCurrentRawStream(dev.index)
+
+    @contextlib.contextmanager
+    def side(self, dev: torch.device):
+        """Work on dev's side stream, ordered after the current stream's
+        work queued so far and before what it queues next."""
+        cur = torch.cuda.current_stream(dev)
+        side = self._side.get(dev)
+        if side is None:
+            side = self._side[dev] = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            yield
+        cur.wait_stream(side)
+
+    def capture(self, fn, pool=None):
+        """(graph, fn's output) from capturing fn on the current stream;
+        only this thread's calls may break the capture."""
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+        return graph, out
+
+    def keep(self, tensors: list[torch.Tensor], dev: torch.device) -> None:
+        """Tensors made on the side stream, handed to the current one."""
+        cur = torch.cuda.current_stream(dev)
+        for t in tensors:
+            t.record_stream(cur)
+
+
+_WARMED = "warmed"   # a key's first call ran eagerly; the next captures
+
+
+class StepGraphs:
+    """rx_block's captured steps, by step shape: spec, options, x's and
+    head's shapes, max_frames, the ownership window, the device and its
+    current stream (so that steps on other streams share no buffer).  The
+    first call of a key runs eagerly on the current stream and builds the
+    constants and FFT plans; the second runs on a side stream and captures;
+    later calls replay.  The `size` keys used last are kept."""
+
+    def __init__(self, size: int = 8, calls: CudaGraphCalls | None = None):
+        self.size = size
+        self.calls = CudaGraphCalls() if calls is None else calls
+        self.steps: collections.OrderedDict = collections.OrderedDict()
+        # a step's buffers serve one call at a time
+        self._lock = threading.Lock()
+
+    def run(self, spec, x, max_frames, own_lo, own_hi, head, equalizer,
+            output) -> RxBlockResult:
+        args = (max_frames, own_lo, own_hi, head, equalizer, output)
+        if not self.calls.usable(x):
+            if x.device.type == "cuda":
+                metrics.count("rx.graph_eager")
+            return rx_block_eager(spec, x, *args)
+        key = (spec, equalizer, output, tuple(x.shape),
+               None if head is None else tuple(head.shape), max_frames,
+               own_lo, own_hi, x.device, self.calls.stream(x.device))
+        with self._lock:
+            step = self.steps.pop(key, None)
+            if isinstance(step, _Step):
+                self.steps[key] = step
+                metrics.count("rx.graph_replay")
+                return step.replay(x, head)
+            metrics.count("rx.graph_eager")
+            if step is None:
+                res = rx_block_eager(spec, x, *args)
+                self.steps[key] = _WARMED
+            else:
+                step = _Step(self.calls, spec, x, max_frames, head)
+                res = step.capture(x, *args)
+                self.steps[key] = step
+            while len(self.steps) > self.size:
+                self.steps.popitem(last=False)
+            return res
+
+
+STEP_GRAPHS = StepGraphs()

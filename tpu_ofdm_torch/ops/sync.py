@@ -130,12 +130,27 @@ def detect_frames(
     window (the golden model's ISI backoff).  `threshold` (default: the
     spec's sync_threshold) applies in the selection over the row summaries,
     not in the kernel."""
+    nv = x.shape[-1] + (0 if head is None else head.shape[-1])
+    return select_frames(spec, detect_rows(spec, x, head), nv, max_frames,
+                         threshold)
+
+
+def detect_rows(spec: OfdmSpec, x: torch.Tensor,
+                head: torch.Tensor | None = None,
+                out: torch.Tensor | None = None):
+    """The per-row summaries of [head | x] at the spec's sync word
+    (sc_detect_rows; into `out`, where given)."""
+    return sc_detect_rows(x, spec.fft_len // 2, spec.cp_len, head=head,
+                          out=out)
+
+
+def select_frames(spec: OfdmSpec, rows6, nv: int, max_frames: int,
+                  threshold: float | None = None) -> Detections:
+    """detect_frames' selection over the row summaries `rows6` of a
+    virtual buffer of nv samples."""
     if threshold is None:
         threshold = spec.cfg.sync_threshold
-    L = spec.fft_len // 2
-    nv = x.shape[-1] + (0 if head is None else head.shape[-1])
-    n_sm = nv - 2 * L - spec.cp_len + 1
-    rows6 = sc_detect_rows(x, L, spec.cp_len, head=head)
+    n_sm = nv - 2 * (spec.fft_len // 2) - spec.cp_len + 1
     return _select_from_rows(spec, *rows6, n_sm=n_sm, max_frames=max_frames,
                              threshold=threshold)
 
