@@ -11,7 +11,10 @@ portbench's own set-up, paths and closed loop:
             spans (push, collect, feed, air), as its window reads them;
   spanned   3 s, spans on, the profiler off: each program span's host ms a push
             (all its calls in the stretch over its pushes) and self ms a
-            push, the counters, and slot_use = 100 * rx.frames / rx.slots;
+            push, the counters, slot_use = 100 * rx.frames / rx.slots,
+            the sc_detect launches a push by kernel form (sc_detect.l32,
+            .seg, .any_l) and int_cfo_share = 100 * rx.int_cfo / rx.frames,
+            the share of the frames reported with a nonzero integer CFO;
   traced    spans on under torch.profiler: the card's busy ms a push, the
             loop's host ms a push outside the harness's spans, and the
             card's idle gaps, each named "<harness span>/<innermost program
@@ -66,13 +69,21 @@ def stretch(loop, seconds: float) -> dict:
 
 
 def budget(spans, counters: dict, pushes: int) -> dict:
-    """Each program span's calls and host ms a push (total and self)."""
+    """Each program span's calls and host ms a push (total and self), slot
+    use, sc_detect's launches a push by kernel form, and the share of the
+    frames reported with a nonzero integer CFO."""
     out = {name: {"calls": d["calls"], "ms": d["ms"] / pushes,
                   "self_ms": d["self_ms"] / pushes}
            for name, d in sorted(metrics.summary(spans).items())}
     slots, frames = counters.get("rx.slots"), counters.get("rx.frames")
+    shifted = counters.get("rx.int_cfo")
+    forms = {k.split(".", 1)[1]: v / pushes for k, v in counters.items()
+             if k.startswith("sc_detect.")}
     return {"spans": out, "counters": dict(counters),
-            "slot_use": 100.0 * frames / slots if slots else None}
+            "slot_use": 100.0 * frames / slots if slots else None,
+            "detect_launches_per_push": forms,
+            "int_cfo_share": (100.0 * shifted / frames
+                              if frames and shifted is not None else None)}
 
 
 def innermost(ranges, t: float):
@@ -232,7 +243,7 @@ def run_cell(cell: cells.Cell, seed: int, device="cuda", window=WINDOW_S,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cells", default="rx64_dense,wideband64_3ch,"
-                    "rx64_file_i16c,radio64_duplex")
+                    "rx64_file_i16c,radio64_duplex,rx256_cfo")
     ap.add_argument("--seed", type=int, default=2718281828)
     ap.add_argument("--cost-cells", default="")
     ap.add_argument("--out", required=True, help="the JSON result")
@@ -255,6 +266,8 @@ def main(argv=None) -> int:
             "spanned_ms": {k: round(v["ms"], 4)
                            for k, v in sp["spans"].items()},
             "slot_use": sp["slot_use"],
+            "detect_launches_per_push": sp["detect_launches_per_push"],
+            "int_cfo_share": sp["int_cfo_share"],
             "gaps": [[g["label"], g["s"], g["worker"]]
                      for g in r["traced"]["gaps"]["longest"][:4]]}),
             flush=True)

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_ofdm_torch.kernels.build import check_vector, complex_ptr, library
+from tpu_ofdm_torch.utils import metrics
 
 ROW = 128  # candidate granularity (ops.sync.ROW)
 
@@ -114,7 +115,9 @@ def sc_detect_rows(x: torch.Tensor, L: int, cp: int,
     with head (h,), or a batch x (B, n) with head (B, h).  `out`, where
     given, is the (6, B, rows) float32 buffer the six are written to (B 1
     for an unbatched x; smarg's int32 bits in row 1), and they are returned
-    as views of it."""
+    as views of it.  Counters "sc_detect.l32", "sc_detect.seg" and
+    "sc_detect.any_l": one a call, under the kernel_form that serves it
+    (on the card, the kernel launched)."""
     check_vector(x, "x", torch.complex64, ndims=(1, 2))
     if head is not None:
         check_vector(head, "head", torch.complex64, x.device, ndims=(x.ndim,))
@@ -130,6 +133,8 @@ def sc_detect_rows(x: torch.Tensor, L: int, cp: int,
                          "below the selection sentinel 2^30")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"sc_detect_rows: unsupported device {x.device}")
+    if metrics.enabled():
+        metrics.count("sc_detect." + kernel_form(L, cp))
     rows = -(-nv // ROW)
     B = x.shape[0] if x.ndim == 2 else 1
     if out is None:

@@ -98,7 +98,8 @@ def collect_frames(outs, block_size: int | None = None,
     "abs_start", the absolute sample index of its detected start; with a
     soft-output receiver, "llr" holds the LLRs of the wire bytes (payload
     and CRC32).  Spans "sink.wait" (spans on only), "sink.copy" and
-    "sink.unpack" a step; counter "rx.frames"."""
+    "sink.unpack" a step; counters "rx.frames" and "rx.int_cfo" (the
+    frames reported with a nonzero integer CFO)."""
     frames = []
     traced = metrics.enabled()
     for o in outs:
@@ -119,6 +120,9 @@ def collect_frames(outs, block_size: int | None = None,
         with metrics.span("sink.unpack", push=step):
             rows = np.nonzero(valid)[0]
             metrics.count("rx.frames", len(rows))
+            if traced:
+                metrics.count("rx.int_cfo",
+                              int(np.count_nonzero(host["int_cfo"][rows])))
             for i in rows:
                 plen = int(host["payload_len"][i])
                 rec_start = int(starts[i])
