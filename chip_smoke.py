@@ -21,10 +21,13 @@ in order -- any failure raises and the script exits non-zero:
               class and both parities, and timed cold
               (L2 flushed before each launch) and per call from the host
               beside x.unfold(-1, F, 1)[starts]; pfb at 8..512 channels with a
-              two-step tail carry, and the one-shot channelize on the card
-              against the CPU; psd at every covered N (16, 32, 64, 128 n1)
-              with two windows, bin by bin, on batched inputs with ragged
-              rows through psd_frames (one launch each), and beside
+              two-step tail carry, its channel-major form bit for bit
+              against the row form transposed at every covered channel
+              count (zero and carried tails, and 2^25 at 64 channels), and
+              the one-shot channelize on the card against the CPU; psd at
+              every covered N (16, 32, 64, 128 n1) with two windows, bin
+              by bin, on batched inputs with ragged rows through
+              psd_frames (one launch each), and beside
               torch.fft.fft; pfb and psd also at the shapes the paths
               give them; scan also at ragged lengths and along a leading
               axis, beside float32 and float64 torch.cumsum; sc_metric raw
@@ -39,7 +42,8 @@ in order -- any failure raises and the script exits non-zero:
   5. wideband channelizer -> 64 parallel demods (BASELINE config 4) at
               block 2^25, K = 4: 3 frames per push on channels 3, 17, 40,
               4 timed pushes x 3 trials; every push must give exactly those
-              frames; pfb, sc_detect and gather must have been launched
+              frames; pfb, sc_detect and gather must have been launched,
+              pfb once a push in its channel-major form
   6. spectrum spectrum probe (1024, blackman_harris), logpwrfft (1024,
               alpha 0.1) and waterfall (512 x 32) on 2^22-sample blocks, 3
               pushes each, against the same blocks on the CPU; the tone
@@ -943,8 +947,9 @@ def check_pfb(dev, tag: str) -> dict:
     """pfb against its plain version at 8..512 channels over 2^20 samples,
     in two steps joined by the tail carry, and at the paths' shapes, on
     noise alone (atol 2e-4 * max|want|, the bar of
-    tests/test_kernels_pfb.py); then kernel and plain times at the paths'
-    shapes."""
+    tests/test_kernels_pfb.py); its channel-major form equal to the row
+    form transposed (check_pfb_chan); then kernel (both forms) and plain
+    times at the paths' shapes."""
     err = 0.0
     for N in (8, 64, 128, 384, 512):
         poly = torch.as_tensor(polyphase_decompose(lowpass_taps(N), N),
@@ -959,6 +964,7 @@ def check_pfb(dev, tag: str) -> dict:
         err = max(err, check_close(
             torch.cat([a, b]), want, 2e-4,
             f"pfb N {N} over 2^20 in two carried steps"))
+    check_pfb_chan(dev)
     err = max(err, check_channelize(dev))
     times, bounds = {}, {}
     for N, n in ((WB_CHANS, BLOCK), (SCAN_CHANS, SCAN_BLOCK)):
@@ -970,20 +976,58 @@ def check_pfb(dev, tag: str) -> dict:
             kpfb.channelize_fused(x, poly, tail),
             kpfb.channelize_fused_plain(x, poly, tail), 2e-4,
             f"pfb N {N} at {n} samples"))
-        times[N] = (cuda_ms(lambda: kpfb.channelize_fused(x, poly, tail), 20),
-                    cuda_ms(lambda: kpfb.channelize_fused_plain(x, poly, tail),
-                            3))
+        times[N] = (
+            cuda_ms(lambda: kpfb.channelize_fused(x, poly, tail), 20),
+            cuda_ms(lambda: kpfb.channelize_fused_plain(x, poly, tail), 3),
+            cuda_ms(lambda: kpfb.channelize_fused(x, poly, tail,
+                                                  layout="chan"), 20))
         log(f"  pfb N {N} at {n} samples: kernel {times[N][0]:.4f} ms, "
-            f"plain {times[N][1]:.4f} ms  [{tag}]")
+            f"plain {times[N][1]:.4f} ms, channel-major {times[N][2]:.4f} "
+            f"ms  [{tag}]")
         J = poly.shape[0]
         # x in and out, the FIR's lookback in the tail, the taps; a complex
         # times real multiply-add per tap, ~5 log2 N flops of FFT
         bounds[N] = bound(16 * n + 8 * (J - 1) * N + 4 * J * N,
                           n * (4 * J + 5 * math.log2(N)))
         log_bound(f"pfb N {N} at {n} samples", times[N][0], bounds[N])
+        log_bound(f"pfb N {N} at {n} samples, channel-major", times[N][2],
+                  bounds[N])
     return {"max_abs_err": err, "ms": times[WB_CHANS][0],
-            "plain_ms": times[WB_CHANS][1], **bounds[WB_CHANS],
-            "library_ms": None}
+            "plain_ms": times[WB_CHANS][1], "chan_ms": times[WB_CHANS][2],
+            **bounds[WB_CHANS], "library_ms": None}
+
+
+def check_pfb_chan(dev) -> None:
+    """pfb's channel-major form (layout "chan") against the row form's
+    output transposed, bit for bit (torch.equal): at every channel count
+    the kernel covers over 2^20 samples, in two steps, the first from a
+    zero tail and the second carrying the first's, and at 2^25 samples at
+    64 channels (the wideband step's shape) with a noise tail."""
+    cases = [(N, (1 << 20) // N * N, False) for N in range(1, 513)
+             if kpfb.supported(N)]
+    for N, n, whole in cases + [(WB_CHANS, BLOCK, True)]:
+        poly = torch.as_tensor(polyphase_decompose(lowpass_taps(N), N),
+                               device=dev)
+        C = kpfb.tail_len(N, poly.shape[0])
+        x = noisy_buffers(1, n, seed=N + 40, dev=dev)[0]
+        if whole:
+            steps = [(x, noisy_buffers(1, C, seed=41, dev=dev)[0])]
+        else:
+            n0 = n // 2 // N * N
+            steps = [(x[:n0], None), (x[n0:], x[n0 - C:n0])]
+        for xs, tail in steps:
+            row = kpfb.channelize_fused(xs, poly, tail)
+            chan = kpfb.channelize_fused(xs, poly, tail, layout="chan")
+            if not torch.equal(chan, row.t().contiguous()):
+                bad = (chan != row.t()).sum().item()
+                raise AssertionError(
+                    f"pfb N {N}, {xs.shape[0]} samples, tail "
+                    f"{'none' if tail is None else tail.shape[0]}: the "
+                    f"channel-major form differs from the row form "
+                    f"transposed at {bad} samples")
+    log(f"  pfb channel-major form equal to the row form transposed at "
+        f"{len(cases)} channel counts over 2^20 (zero and carried tails) "
+        f"and at {WB_CHANS} over 2^{BLOCK.bit_length() - 1}")
 
 
 def check_channelize(dev) -> float:
@@ -1422,6 +1466,11 @@ def phase_wideband(dev, tag: str) -> dict:
     reset_launches(*names)
     results = [trial() for _ in range(3)]
     launches = read_launches("wideband", *names)
+    pfb_forms = dict(WRAPPERS["pfb"].forms)
+    if pfb_forms != {"row": 0, "chan": 3 * WB_PUSHES}:
+        raise AssertionError(f"wideband: pfb launches by layout {pfb_forms}"
+                             f", want one channel-major a push")
+    log(f"wideband: pfb launches by layout {pfb_forms}")
     torch.cuda.set_sync_debug_mode("error")
     try:
         ex.push(block)

@@ -1,5 +1,5 @@
-"""Time the port's sc_detect, gather, scan, sc_metric and psd kernels as
-built from other source trees, in turns with this checkout's, in one
+"""Time the port's sc_detect, gather, scan, sc_metric, psd and pfb kernels
+as built from other source trees, in turns with this checkout's, in one
 process on one card.
 
     python3 kernel_ab.py TREE [TREE ...] [--rounds 2] [--out FILE]
@@ -11,8 +11,9 @@ of a kernel.  Needs one CUDA card and nvcc; imports no JAX.  Every build is
 first held against the plain versions (gather bit for bit, scan at
 chip_smoke.py's one-ulp bar, sc_metric at its bars and the gated form bit
 for bit against the raw one and the torch gate, psd bin by bin, sc_detect
-by compare_rows; a tree
-that fails is reported and timed all the same), then timed in turns, this
+by compare_rows, pfb against its plain version at 2e-4 of the peak and
+its channel-major form bit for bit against its row form transposed; a
+tree that fails is reported and timed all the same), then timed in turns, this
 checkout first and last in each round (A B .. B A), at the shapes of
 chip_smoke.py's `kernels` line:
 
@@ -36,6 +37,12 @@ chip_smoke.py's `kernels` line:
   psd          N 1024 on 2^22 samples and N 64 on (64, 2^19) (as 2^25
                samples in one row of frames), through `psd_launch`, warm
                and cold
+  pfb          N 64 on 2^25 samples (the wideband step) and N 512 on 2^23
+               (the scan), each with a carried tail: the row form
+               (`pfb_launch`), the channel-major form (`pfb_chan_launch`,
+               where the tree has it) and the row form followed by
+               `.t().contiguous()` (the wideband step before the
+               channel-major form), warm
 
 Prints one line per build and round, and writes them all as JSON to
 --out when it is given.
@@ -53,13 +60,15 @@ import torch
 import chip_smoke as cs
 from tpu_ofdm_torch.kernels import build
 from tpu_ofdm_torch.kernels import gather as kgather
+from tpu_ofdm_torch.kernels import pfb as kpfb
 from tpu_ofdm_torch.kernels import sc_detect as kdetect
 from tpu_ofdm_torch.kernels import psd as kpsd
 from tpu_ofdm_torch.kernels import sc_metric as kmetric
 from tpu_ofdm_torch.kernels import scan as kscan
 from tpu_ofdm_torch.kernels.build import complex_ptr
 from tpu_ofdm_torch.modem.rx_stream import history_len
-from tpu_ofdm_torch.spectrum.channelizer import channelize, lowpass_taps
+from tpu_ofdm_torch.spectrum.channelizer import (channelize, lowpass_taps,
+                                                 polyphase_decompose)
 
 
 def inputs(dev) -> dict:
@@ -104,6 +113,15 @@ def inputs(dev) -> dict:
             big = (b25[4096:], b25[:4096].contiguous())
             name = f"detect_{fft_len}_2^25"
         detect[name] = ("detect", (*big, fft_len // 2, cp), None)
+    pfb = {}
+    for N, n in ((cs.WB_CHANS, cs.BLOCK), (cs.SCAN_CHANS, cs.SCAN_BLOCK)):
+        poly = torch.as_tensor(polyphase_decompose(lowpass_taps(N), N),
+                               device=dev)
+        xp = cs.noisy_buffers(1, n, seed=N + 50, dev=dev)[0]
+        tail = xp[-kpfb.tail_len(N, poly.shape[0]):].clone()
+        want = kpfb.channelize_fused_plain(xp, poly, tail)
+        for form, tag in (("row", ""), ("chan", "_chan"), ("rowt", "_rowt")):
+            pfb[f"pfb_{N}{tag}"] = ("pfb", (xp, poly, tail, form), want)
     return {
         "detect_1": ("detect", (x, head, 32, 16), None),
         "detect_c5": ("detect", (x5, h5, 32, 16), None),
@@ -120,6 +138,7 @@ def inputs(dev) -> dict:
                      kgather.gather_windows_plain(x, starts_x, F)),
         "scan_1": ("scan", (x1,), None),
         "scan_3": ("scan", (x3,), None),
+        **pfb,
     }
 
 
@@ -170,6 +189,21 @@ def runner(lib, kernel: str, args):
             lib.launch("psd_launch", x.device, x.data_ptr(), nf,
                        consts.data_ptr(), N, out.data_ptr())
             return out
+    elif kernel == "pfb":
+        x, poly, tail, form = args
+        fn = "pfb_chan_launch" if form == "chan" else "pfb_launch"
+        if not hasattr(lib.lib, fn):
+            return None
+        J, N = poly.shape
+        n = x.shape[0]
+        out = torch.empty((N, n // N) if form == "chan" else (n // N, N),
+                          dtype=torch.complex64, device=x.device)
+
+        def run():
+            lib.launch(fn, x.device, complex_ptr(tail), tail.shape[0],
+                       complex_ptr(x), n, poly.data_ptr(), J, N,
+                       complex_ptr(out))
+            return out.t().contiguous() if form == "rowt" else out
     elif kernel == "gather":
         x, starts, head, F = args
         out = torch.empty((*starts.shape, F), dtype=torch.complex64,
@@ -218,6 +252,18 @@ def check(name: str, lib, calls: dict) -> None:
                 ok = False
         elif kernel == "gather":
             ok = torch.equal(got, want)
+        elif kernel == "pfb":
+            x, poly, tail, form = args
+            if form == "row":
+                try:
+                    cs.check_close(got, want, 2e-4, f"{name}: {what}")
+                    ok = True
+                except AssertionError as e:
+                    cs.log(f"  {e}")
+                    ok = False
+            else:
+                row = runner(lib, kernel, (x, poly, tail, "row"))()
+                ok = torch.equal(got, row.t().contiguous())
         elif kernel == "scan":
             ok = cs.scan_ratio(got, args[0])[1] <= 1.0
         elif kernel == "metric":
@@ -243,9 +289,9 @@ def check(name: str, lib, calls: dict) -> None:
         cs.log(f"{name}: FAILS its check on {bad}; timed all the same, as a "
                "design that was tried")
     else:
-        cs.log(f"{name}: gather exact, sc_detect, scan, sc_metric and psd "
-               "within their bars, gated sc_metric exact where the tree has "
-               "it")
+        cs.log(f"{name}: gather exact, sc_detect, scan, sc_metric, psd and "
+               "pfb within their bars, gated sc_metric and pfb's "
+               "channel-major form exact where the tree has them")
 
 
 def timings(lib, calls: dict) -> dict:
@@ -260,7 +306,7 @@ def timings(lib, calls: dict) -> dict:
         elif kernel in ("metric", "gate"):
             out[what] = cs.cuda_ms(fn, 20)
             out[what + "_cold"] = cs.cold_ms(fn, 10)
-        elif kernel == "detect":
+        elif kernel in ("detect", "pfb"):
             out[what] = cs.cuda_ms(fn, 20)
         else:
             out[what] = cs.cuda_ms(fn, 20)
@@ -273,7 +319,7 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--out")
     ap.add_argument("--only", help="comma-separated prefixes of the timed "
-                    "calls (detect, gather, scan, metric, gate, psd); "
+                    "calls (detect, gather, scan, metric, gate, psd, pfb); "
                     "default all")
     args = ap.parse_args()
     smi = cs.phase_device()
@@ -288,8 +334,8 @@ def main():
         for i, line in enumerate(lines):
             if "Compiling entry" in line and any(
                     k in line for k in ("sc_detect", "gather", "scan",
-                                        "sc_metric", "psd")):
-                for info in lines[i:i + 3]:
+                                        "sc_metric", "psd", "pfb")):
+                for info in lines[i:i + 4]:
                     cs.log("  ptxas:", info.strip())
     calls = inputs(dev)
     if args.only:

@@ -13,7 +13,8 @@ portbench's own set-up, paths and closed loop:
             (all its calls in the stretch over its pushes) and self ms a
             push, the counters, slot_use = 100 * rx.frames / rx.slots,
             the sc_detect launches a push by kernel form (sc_detect.l32,
-            .seg, .any_l) and int_cfo_share = 100 * rx.int_cfo / rx.frames,
+            .seg, .any_l), the pfb launches a push by store form (pfb.row,
+            pfb.chan) and int_cfo_share = 100 * rx.int_cfo / rx.frames,
             the share of the frames reported with a nonzero integer CFO;
   traced    spans on under torch.profiler: the card's busy ms a push, the
             loop's host ms a push outside the harness's spans, and the
@@ -70,18 +71,21 @@ def stretch(loop, seconds: float) -> dict:
 
 def budget(spans, counters: dict, pushes: int) -> dict:
     """Each program span's calls and host ms a push (total and self), slot
-    use, sc_detect's launches a push by kernel form, and the share of the
-    frames reported with a nonzero integer CFO."""
+    use, sc_detect's launches a push by kernel form, pfb's by store form,
+    and the share of the frames reported with a nonzero integer CFO."""
     out = {name: {"calls": d["calls"], "ms": d["ms"] / pushes,
                   "self_ms": d["self_ms"] / pushes}
            for name, d in sorted(metrics.summary(spans).items())}
     slots, frames = counters.get("rx.slots"), counters.get("rx.frames")
     shifted = counters.get("rx.int_cfo")
-    forms = {k.split(".", 1)[1]: v / pushes for k, v in counters.items()
-             if k.startswith("sc_detect.")}
+    def per_push(kernel):
+        return {k.split(".", 1)[1]: v / pushes for k, v in counters.items()
+                if k.startswith(kernel + ".")}
+
     return {"spans": out, "counters": dict(counters),
             "slot_use": 100.0 * frames / slots if slots else None,
-            "detect_launches_per_push": forms,
+            "detect_launches_per_push": per_push("sc_detect"),
+            "pfb_launches_per_push": per_push("pfb"),
             "int_cfo_share": (100.0 * shifted / frames
                               if frames and shifted is not None else None)}
 
@@ -267,6 +271,7 @@ def main(argv=None) -> int:
                            for k, v in sp["spans"].items()},
             "slot_use": sp["slot_use"],
             "detect_launches_per_push": sp["detect_launches_per_push"],
+            "pfb_launches_per_push": sp["pfb_launches_per_push"],
             "int_cfo_share": sp["int_cfo_share"],
             "gaps": [[g["label"], g["s"], g["worker"]]
                      for g in r["traced"]["gaps"]["longest"][:4]]}),

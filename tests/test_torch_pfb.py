@@ -3,7 +3,8 @@ streaming Block around it) against the JAX package: its XLA `channelize`
 chain and its fused Pallas kernel run in TPU interpret mode, as
 tests/test_kernels_pfb.py runs it.  Bar: atol 2e-4 * max|want|, the bar of
 tests/test_kernels_pfb.py.  The CUDA kernel itself is held against the
-plain version on the card by chip_smoke.py."""
+plain version on the card by chip_smoke.py, and its source on the CPU by
+tests/test_torch_pfb_emulated.py."""
 
 import numpy as np
 import pytest
@@ -166,7 +167,7 @@ def test_wrapper_takes_plain_version_on_cpu():
 
 
 @pytest.mark.parametrize("bad", ["x_dtype", "ragged", "n_chan", "short_tail",
-                                 "poly_dtype"])
+                                 "poly_dtype", "layout"])
 def test_wrapper_rejects_bad_inputs(bad):
     x = torch.zeros(64 * 8, dtype=torch.complex64)
     poly = _poly(64)
@@ -179,10 +180,112 @@ def test_wrapper_rejects_bad_inputs(bad):
         x, poly = torch.zeros(48 * 8, dtype=torch.complex64), _poly(48)
     elif bad == "short_tail":
         tail = torch.zeros(64, dtype=torch.complex64)
-    else:
+    elif bad == "poly_dtype":
         poly = poly.double()
+    layout = "cols" if bad == "layout" else "row"
     with pytest.raises((TypeError, ValueError)):
-        tpfb.channelize_fused(x, poly, tail=tail)
+        tpfb.channelize_fused(x, poly, tail=tail, layout=layout)
+
+
+@pytest.mark.parametrize("layout", ["cols", "channel", None])
+def test_stream_rejects_an_unknown_layout(layout):
+    x = torch.zeros(64 * 8, dtype=torch.complex64)
+    with pytest.raises(ValueError, match="layout"):
+        tch.channelize_stream(x, torch.zeros(512, dtype=torch.complex64),
+                              64, _poly(64), layout=layout)
+
+
+COVERED = [n for n in range(1, 513) if tpfb.supported(n)]
+
+
+@pytest.mark.parametrize("n_chan", COVERED)
+def test_chan_layout_is_the_row_layout_transposed(n_chan):
+    """At every channel count pfb covers, the channel-major output is the
+    row output's `.t().contiguous()` bit for bit: channelize_fused with a
+    zero tail, then channelize_stream's two steps joined by its carried
+    tail (the wideband receiver's call)."""
+    poly = _poly(n_chan)
+    C = tpfb.tail_len(n_chan, poly.shape[0])
+    rows = 12
+    x = torch.as_tensor(_rand(2 * rows * n_chan, seed=n_chan + 3))
+    a, b = x[:rows * n_chan], x[rows * n_chan:]
+    got = tpfb.channelize_fused(a, poly, layout="chan")
+    assert got.shape == (n_chan, rows) and got.is_contiguous()
+    assert torch.equal(got, tpfb.channelize_fused(a, poly).t().contiguous())
+    tail = torch.zeros(C, dtype=torch.complex64)
+    for step in (a, b):
+        row, row_tail = tch.channelize_stream(step, tail, n_chan, poly)
+        chan, chan_tail = tch.channelize_stream(step, tail, n_chan, poly,
+                                                layout="chan")
+        assert chan.shape == (n_chan, rows) and chan.is_contiguous()
+        assert torch.equal(chan, row.t().contiguous())
+        assert torch.equal(chan_tail, row_tail)
+        tail = row_tail
+    assert tail.abs().sum() > 0
+
+
+def test_chan_layout_of_a_batched_stream():
+    """The torch route of a batched stream hands out each row's channels
+    channel-major too: (B, N, rows), the row layout's last two axes
+    swapped."""
+    n_chan, rows = 16, 10
+    x = torch.as_tensor(_rand(2 * rows * n_chan, seed=9)).reshape(2, -1)
+    tail = torch.as_tensor(_rand(2 * 128, seed=10)).reshape(2, -1)
+    row, _ = tch.channelize_stream(x, tail, n_chan, _poly(n_chan))
+    chan, _ = tch.channelize_stream(x, tail, n_chan, _poly(n_chan),
+                                    layout="chan")
+    assert chan.shape == (2, n_chan, rows) and chan.is_contiguous()
+    assert torch.equal(chan, row.transpose(-1, -2))
+
+
+def _swizzle(nl: int, kl: int) -> int:
+    """csrc/pfb.cu stage_swizzle<NL>."""
+    return (kl >> 1) & 15 if nl >= 32 else (kl * (16 // nl)) & 15
+
+
+def _bitrev(v: int, bits: int) -> int:
+    return int(format(v, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+@pytest.mark.parametrize("n_chan", COVERED)
+def test_chan_stage_is_free_of_bank_conflicts(n_chan):
+    """A model of csrc/pfb.cu's channel-major stage: each frame's bins go
+    to stage row k at column f ^ stage_swizzle(kl) (kl the lane's bin lane,
+    bitrev of its lane in the frame), row stride R rounded up to 16.  Every
+    half-warp's 8-byte stores of one p fall on 16 distinct bank pairs; a
+    quarter-warp's 16-byte loads of a channel's run on 8 distinct 16-byte
+    slots (where a channel's run is whole groups of 8 pairs: at every
+    channel count but 384); and (k, f) -> stage slot is one to one inside
+    the stage."""
+    nl = min(n_chan, 32)
+    P, fpw, log_nl = n_chan // nl, 32 // nl, nl.bit_length() - 1
+    R = (4096 if n_chan <= 128 else 8192) // n_chan
+    RS = (R + 15) & ~15
+    slots = {}
+    for g in range(-(-R // fpw)):
+        for p in range(P):
+            banks = [[], []]
+            for lane in range(32):
+                lp, f = lane % nl, g * fpw + lane // nl
+                kl = _bitrev(lp, log_nl)
+                k = p + P * kl
+                slot = k * RS + (f ^ _swizzle(nl, kl))
+                assert (f ^ _swizzle(nl, kl)) < RS
+                if f < R:
+                    slots[slot] = (k, f)
+                banks[lane // 16].append(slot % 16)
+            for half in banks:
+                assert len(set(half)) == 16
+    assert len(slots) == R * n_chan
+    pairs = (R + 1) // 2
+    for i0 in range(0, n_chan * pairs, 8):
+        loads = []
+        for i in range(i0, min(i0 + 8, n_chan * pairs)):
+            k, t = i // pairs, 2 * (i % pairs)
+            s = _swizzle(nl, k // P)
+            loads.append((k * RS // 2 + ((t ^ s) >> 1)) % 8)
+        if pairs % 8 == 0:
+            assert len(set(loads)) == len(loads)
 
 
 @pytest.mark.parametrize("n_chan", [8, 64, 512])

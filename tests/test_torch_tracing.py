@@ -4,8 +4,9 @@ span is the one shared null context and reads no clock; on, nested spans
 on two threads keep their parents and push numbers, the cap counts what it
 drops, a push of the streaming receiver and its sink record their stages
 under one push number with the slot and frame counters, the outputs are
-the same bits with spans on and off, FileStreamer's `last_times` are its
-spans' durations, and `trace` puts the stages in the Chrome trace."""
+the same bits with spans on and off, pfb counts its calls by layout,
+FileStreamer's `last_times` are its spans' durations, and `trace` puts the
+stages in the Chrome trace."""
 
 import json
 import threading
@@ -22,6 +23,7 @@ from tests.test_torch_wideband import TSPEC as WB_SPEC, _capture
 from tpu_ofdm_torch import config as tconfig
 from tpu_ofdm_torch import runtime as rt
 from tpu_ofdm_torch.io import DeviceFeed
+from tpu_ofdm_torch.kernels import pfb as tpfb
 from tpu_ofdm_torch.modem import radio as tradio
 from tpu_ofdm_torch.modem import rx_stream as trs
 from tpu_ofdm_torch.modem import tx_stream as tts
@@ -223,6 +225,25 @@ def test_radio_and_wideband_outputs_are_the_same_bits_with_spans_on():
                                         + len(wb_on) * N_CHAN
                                         * WB_SC.max_frames_per_block)
     assert got.counters["rx.frames"] == len(wbf_on)
+
+
+@pytest.mark.parametrize("layouts", [("row",), ("chan",),
+                                     ("row", "chan", "chan")])
+def test_pfb_counts_one_call_under_each_layout(layouts):
+    """Counters "pfb.row" and "pfb.chan": one a channelize_fused call under
+    its layout while spans are on (on the CPU the plain version serves
+    it), none while they are off."""
+    x = torch.zeros(64 * 8, dtype=torch.complex64)
+    poly = torch.zeros((8, 64), dtype=torch.float32)
+    for layout in layouts:
+        tpfb.channelize_fused(x, poly, layout=layout)
+    assert tm.drain().counters == {}
+    tm.enable(True)
+    for layout in layouts:
+        tpfb.channelize_fused(x, poly, layout=layout)
+    got = tm.drain()
+    assert got.counters == {f"pfb.{form}": layouts.count(form)
+                            for form in set(layouts)}
 
 
 def test_file_streamer_into_the_feed_times_each_block_once(tmp_path):

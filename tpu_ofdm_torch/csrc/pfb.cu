@@ -36,8 +36,22 @@
 //     W_N^(l k), log2(min(N, 32)) radix-2 decimation-in-frequency stages
 //     across the lanes with __shfl_xor_sync butterflies, and one shuffle
 //     that undoes the bit reversal.  No block barrier after staging;
-//   - lane l then holds bins P l .. P l + P - 1 of its frame, in natural
-//     order, and writes them as one contiguous run of 16-byte stores.
+//   - row form (out (rows, N), `pfb_launch`): lane l then holds bins
+//     P l .. P l + P - 1 of its frame, in natural order, and writes them as
+//     one contiguous run of 16-byte stores;
+//   - channel-major form (out (N, rows), `pfb_chan_launch`, the layout the
+//     wideband receiver batches its demods over): a direct store would put
+//     each frame's N bins on N cache lines, 8 bytes apiece.  Instead the
+//     CTA (R = 4096 / N rows up to N 128, half the row form's, so that the
+//     stage fits beside the input span with three CTAs an SM) stages its
+//     R x N tile channel by channel in shared memory (row stride R rounded
+//     up to 16; each frame's column XOR-swizzled by its lane so that a
+//     half-warp's 8-byte stores land on 16 distinct bank pairs; the
+//     bit-reversal shuffle is not needed), and after one barrier writes
+//     each channel's R samples as one contiguous run of 16-byte stores.
+//     The FIR, the DFT and the summation order are the row form's, so the
+//     output is the row form's transposed, bit for bit.  A template
+//     parameter selects the form; neither pays a runtime branch.
 // Twiddles are exp(2 pi i e / n) from the integer exponent e reduced mod n
 // before it becomes a float (cf. tpu_ofdm/kernels/pfb.py:84, :191).
 // Error bound of the summation order: each arm is a float32 sum of J
@@ -53,13 +67,47 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileSamples = 8192;
+constexpr int kTileSamples = 8192;  // a CTA's output samples, row form
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr unsigned kAll = 0xffffffffu;
 
 // floats of the taps in shared memory, rounded up to 16 bytes
 __host__ __device__ constexpr int tap_floats(int J, int N) {
   return (J * N + 3) & ~3;
+}
+
+// The channel-major form's tile and CTAs an SM (measured at N 64 on 2^25
+// samples and N 512 on 2^23, H100): up to N 128, 4096 output samples a CTA
+// (72 KB of shared memory at N 64) and registers held to 80 so that three
+// CTAs share an SM (N 64: 0.259 ms; two CTAs 0.289, 2048 samples 0.341,
+// 8192 0.401); above, the row form's tile and bounds, as one CTA an SM is
+// all that fits either way and three would spill (N 512: 0.126 ms; 4096
+// samples 0.134, three CTAs 0.167).
+template <int N>
+constexpr int chan_tile_samples() { return N <= 128 ? 4096 : kTileSamples; }
+template <int N, bool kChan>
+constexpr int min_ctas() { return kChan && N <= 128 ? 3 : 2; }
+
+// float4 offset of the channel-major stage in shared memory: 16-byte aligned
+// after the span (float2), the taps and the twiddles (N float2)
+__host__ __device__ constexpr int stage_offset(int span, int J, int N) {
+  return (2 * span + tap_floats(J, N) + 2 * N + 3) / 4;
+}
+
+// float2 row stride of the channel-major stage of R rows: room for every
+// swizzled column (below 16 past a multiple of 16), each row 16-byte aligned
+// and starting on bank 0
+__host__ __device__ constexpr int stage_stride(int R) {
+  return (R + 15) & ~15;
+}
+
+// XOR mask of the stage column of bin lane kl, below 16: the lanes of a
+// half-warp (one frame's bin lanes for NL >= 16, which hold kl = bitrev(lp):
+// the even kl, then the odd, at NL 32; 16 / NL frames of NL lanes below)
+// store to 16 distinct 8-byte bank pairs
+template <int NL>
+__host__ __device__ constexpr int stage_swizzle(int kl) {
+  return NL >= 32 ? (kl >> 1) & 15 : (kl * (16 / NL)) & 15;
 }
 
 // cos(2 pi a / 48) for a multiple of 3 or 4: the roots of unity of the
@@ -98,8 +146,8 @@ __device__ __forceinline__ float2 root(int e, int n) {
   return make_float2(c, s);
 }
 
-template <int N>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int N, bool kChan>
+__global__ void __launch_bounds__(kThreads, (min_ctas<N, kChan>()))
 pfb_kernel(const float2* __restrict__ head, long long h,
            const float2* __restrict__ x, long long nv,
            const float* __restrict__ poly, int J, int R, long long rows,
@@ -116,6 +164,9 @@ pfb_kernel(const float2* __restrict__ head, long long h,
   float* ps = reinterpret_cast<float*>(xs + span);
   // W_N^(lp kp) for every (kp, lp), 16-byte aligned after the taps
   float2* tws = reinterpret_cast<float2*>(ps + tap_floats(J, N));
+  // channel-major form: the (N, RS) stage
+  float2* stage = reinterpret_cast<float2*>(smem + stage_offset(span, J, N));
+  const int RS = stage_stride(R);
 
   // stage [v0, v0 + span): asynchronous 16-byte copies, all in flight
   // together, when the span lies inside x
@@ -202,53 +253,122 @@ pfb_kernel(const float2* __restrict__ head, long long h,
                      : make_float2(y[p].x + bx, y[p].y + by);
       }
     }
-    // natural order: lane lp holds bins P lp .. P lp + P - 1, one
-    // contiguous run, stored 16 bytes at a time
+    if constexpr (kChan) {
+      // bin kp + P kl of each transform, kl = bitrev(lp), into stage row
+      // kp + P kl at the frame's swizzled column
+      const int kl = src_rev & (NL - 1);
+      if (f < R) {
+        float2* col = stage + (f ^ stage_swizzle<NL>(kl));
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      y[p].x = __shfl_sync(kAll, y[p].x, src_rev);
-      y[p].y = __shfl_sync(kAll, y[p].y, src_rev);
+        for (int p = 0; p < P; ++p) col[(p + P * kl) * RS] = y[p];
+      }
+    } else {
+      // natural order: lane lp holds bins P lp .. P lp + P - 1, one
+      // contiguous run, stored 16 bytes at a time
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        y[p].x = __shfl_sync(kAll, y[p].x, src_rev);
+        y[p].y = __shfl_sync(kAll, y[p].y, src_rev);
+      }
+      const long long row = r0 + f;
+      if (f < R && row < rows) {
+        float2* dst = out + row * N + P * lp;
+        if constexpr (P % 2 == 0) {
+#pragma unroll
+          for (int p = 0; p < P; p += 2)
+            reinterpret_cast<float4*>(dst)[p / 2] =
+                make_float4(y[p].x, y[p].y, y[p + 1].x, y[p + 1].y);
+        } else {
+#pragma unroll
+          for (int p = 0; p < P; ++p) dst[p] = y[p];
+        }
+      }
     }
-    const long long row = r0 + f;
-    if (f < R && row < rows) {
-      float2* dst = out + row * N + P * lp;
-      if constexpr (P % 2 == 0) {
-#pragma unroll
-        for (int p = 0; p < P; p += 2)
-          reinterpret_cast<float4*>(dst)[p / 2] =
-              make_float4(y[p].x, y[p].y, y[p + 1].x, y[p + 1].y);
+  }
+
+  if constexpr (kChan) {
+    // each channel's samples of the tile, out[k, r0 ..], two a thread: a
+    // warp writes 32 x 16 contiguous bytes of one channel (R >= 64), or
+    // whole runs of several channels
+    __syncthreads();
+    const long long left = rows - r0;
+    const int valid = left < R ? static_cast<int>(left) : R;
+    const int pairs = (R + 1) >> 1;
+    for (int i = threadIdx.x; i < N * pairs; i += kThreads) {
+      const int k = i / pairs;
+      const int t = 2 * (i - k * pairs);  // time within the tile
+      const int s = stage_swizzle<NL>(k / P);
+      const float4 v =
+          reinterpret_cast<const float4*>(stage + k * RS)[(t ^ s) >> 1];
+      const float2 a = s & 1 ? make_float2(v.z, v.w) : make_float2(v.x, v.y);
+      const float2 b = s & 1 ? make_float2(v.x, v.y) : make_float2(v.z, v.w);
+      float2* dst = out + k * rows + r0 + t;
+      if (t + 1 < valid && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+        *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
       } else {
-#pragma unroll
-        for (int p = 0; p < P; ++p) dst[p] = y[p];
+        if (t < valid) dst[0] = a;
+        if (t + 1 < valid) dst[1] = b;
       }
     }
   }
 }
 
-template <int N>
+template <int N, bool kChan>
 int launch(const float2* head, long long h, const float2* x, long long n,
            const float* poly, int J, float2* out, cudaStream_t stream) {
   const long long rows = n / N;
   if (rows == 0) return cudaSuccess;
   auto smem_of = [&](int r) {
-    return static_cast<size_t>(r + J - 1) * N * sizeof(float2) +
+    const int span = (r + J - 1) * N;
+    if (kChan)
+      return static_cast<size_t>(stage_offset(span, J, N)) * sizeof(float4) +
+             static_cast<size_t>(N) * stage_stride(r) * sizeof(float2);
+    return static_cast<size_t>(span) * sizeof(float2) +
            static_cast<size_t>(tap_floats(J, N)) * sizeof(float) +
            static_cast<size_t>(N) * sizeof(float2);
   };
-  int R = N >= kTileSamples ? 1 : kTileSamples / N;
+  constexpr int tile = kChan ? chan_tile_samples<N>() : kTileSamples;
+  int R = N >= tile ? 1 : tile / N;
   while (R > 1 && smem_of(R) > kMaxSmem) R /= 2;
   const size_t smem = smem_of(R);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;  // J * N too large
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        pfb_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        pfb_kernel<N, kChan>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const long long grid = (rows + R - 1) / R;
-  pfb_kernel<N><<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+  pfb_kernel<N, kChan>
+      <<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
       head, h, x, h + n, poly, J, R, rows, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kChan>
+int dispatch(const void* head, long long h, const void* x, long long n,
+             const void* poly, int J, int N, void* out, void* stream) {
+  if (J < 1 || h < 0 || n < 0 || N < 1 || n % N != 0)
+    return cudaErrorInvalidValue;
+  const auto* hp = static_cast<const float2*>(head);
+  const auto* xp = static_cast<const float2*>(x);
+  const auto* pp = static_cast<const float*>(poly);
+  auto* op = static_cast<float2*>(out);
+  auto* s = static_cast<cudaStream_t>(stream);
+  switch (N) {
+    case 1: return launch<1, kChan>(hp, h, xp, n, pp, J, op, s);
+    case 2: return launch<2, kChan>(hp, h, xp, n, pp, J, op, s);
+    case 4: return launch<4, kChan>(hp, h, xp, n, pp, J, op, s);
+    case 8: return launch<8, kChan>(hp, h, xp, n, pp, J, op, s);
+    case 16: return launch<16, kChan>(hp, h, xp, n, pp, J, op, s);
+    case 32: return launch<32, kChan>(hp, h, xp, n, pp, J, op, s);
+    case 64: return launch<64, kChan>(hp, h, xp, n, pp, J, op, s);
+    case 128: return launch<128, kChan>(hp, h, xp, n, pp, J, op, s);
+    case 256: return launch<256, kChan>(hp, h, xp, n, pp, J, op, s);
+    case 384: return launch<384, kChan>(hp, h, xp, n, pp, J, op, s);
+    case 512: return launch<512, kChan>(hp, h, xp, n, pp, J, op, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -260,25 +380,13 @@ int launch(const float2* head, long long h, const float2* x, long long n,
 extern "C" int pfb_launch(const void* head, long long h, const void* x,
                           long long n, const void* poly, int J, int N,
                           void* out, void* stream) {
-  if (J < 1 || h < 0 || n < 0 || N < 1 || n % N != 0)
-    return cudaErrorInvalidValue;
-  const auto* hp = static_cast<const float2*>(head);
-  const auto* xp = static_cast<const float2*>(x);
-  const auto* pp = static_cast<const float*>(poly);
-  auto* op = static_cast<float2*>(out);
-  auto* s = static_cast<cudaStream_t>(stream);
-  switch (N) {
-    case 1: return launch<1>(hp, h, xp, n, pp, J, op, s);
-    case 2: return launch<2>(hp, h, xp, n, pp, J, op, s);
-    case 4: return launch<4>(hp, h, xp, n, pp, J, op, s);
-    case 8: return launch<8>(hp, h, xp, n, pp, J, op, s);
-    case 16: return launch<16>(hp, h, xp, n, pp, J, op, s);
-    case 32: return launch<32>(hp, h, xp, n, pp, J, op, s);
-    case 64: return launch<64>(hp, h, xp, n, pp, J, op, s);
-    case 128: return launch<128>(hp, h, xp, n, pp, J, op, s);
-    case 256: return launch<256>(hp, h, xp, n, pp, J, op, s);
-    case 384: return launch<384>(hp, h, xp, n, pp, J, op, s);
-    case 512: return launch<512>(hp, h, xp, n, pp, J, op, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch<false>(head, h, x, n, poly, J, N, out, stream);
+}
+
+// pfb_launch's channel-major form: the same arguments, out (N, n / N)
+// complex64, pfb_launch's output transposed.
+extern "C" int pfb_chan_launch(const void* head, long long h, const void* x,
+                               long long n, const void* poly, int J, int N,
+                               void* out, void* stream) {
+  return dispatch<true>(head, h, x, n, poly, J, N, out, stream);
 }

@@ -43,6 +43,7 @@ _SIGNATURES = {
                          _P],
     "gather_launch": [_P, _LL, _LL, _P, _LL, _LL, _I, _P, _I, _I, _P, _P],
     "pfb_launch": [_P, _LL, _P, _LL, _P, _I, _I, _P, _P],
+    "pfb_chan_launch": [_P, _LL, _P, _LL, _P, _I, _I, _P, _P],
     "psd_launch": [_P, _LL, _P, _I, _P, _P],
     "psd_rows_launch": [_P, _LL, _LL, _LL, _P, _I, _P, _P],
     "scan_launch": [_P, _LL, _LL, _P, _LL, _P, _P],

@@ -15,6 +15,11 @@ rows (arm a consumes x[mN + (N-1-a)]).  The tail carry keeps the JAX length
 `tail_len` so a carry saved by either package resumes in the other; the FIR
 reads only its last (J-1) N samples.  CUDA tensors launch the kernel; CPU
 tensors take `channelize_fused_plain`.
+
+`layout` is the consumer's: "row" gives out as above, (n/N, N); "chan" its
+transpose, (N, n/N) channel-major, bit for bit, which the kernel writes
+through its channel-major store (`pfb_chan_launch`) and the plain version
+as `.t().contiguous()` of its rows.
 """
 
 from __future__ import annotations
@@ -22,8 +27,11 @@ from __future__ import annotations
 import torch
 
 from tpu_ofdm_torch.kernels.build import check_vector, complex_ptr, library
+from tpu_ofdm_torch.utils import metrics
 
 LANE = 128  # the JAX kernel's carry granularity
+# output layout -> the kernel's C entry point
+LAUNCH = {"row": "pfb_launch", "chan": "pfb_chan_launch"}
 
 
 def tail_len(n_chan: int, taps_per_arm: int) -> int:
@@ -63,7 +71,8 @@ def channelize_ext(ext_rows: torch.Tensor, poly: torch.Tensor) -> torch.Tensor:
 
 
 def channelize_fused_plain(x: torch.Tensor, poly: torch.Tensor,
-                           tail: torch.Tensor | None = None) -> torch.Tensor:
+                           tail: torch.Tensor | None = None,
+                           layout: str = "row") -> torch.Tensor:
     """Plain PyTorch version of `channelize_fused` (same arguments)."""
     J, N = poly.shape
     k = (J - 1) * N
@@ -72,13 +81,20 @@ def channelize_fused_plain(x: torch.Tensor, poly: torch.Tensor,
     else:
         hist = tail[tail.shape[-1] - k:]
     rows = commutator_rows(torch.cat([hist, x]), N)
-    return channelize_ext(rows, poly)
+    out = channelize_ext(rows, poly)
+    return out.t().contiguous() if layout == "chan" else out
 
 
 def channelize_fused(x: torch.Tensor, poly: torch.Tensor,
-                     tail: torch.Tensor | None = None) -> torch.Tensor:
+                     tail: torch.Tensor | None = None,
+                     layout: str = "row") -> torch.Tensor:
     """(n // N, N) complex64 channel rows of x (n,) complex64 (see the
-    module docstring); tail: >= (J-1)*N complex64 samples preceding x."""
+    module docstring), or with layout "chan" their (N, n // N) transpose;
+    tail: >= (J-1)*N complex64 samples preceding x.  Counters "pfb.row"
+    and "pfb.chan": one a call, under its layout."""
+    if layout not in LAUNCH:
+        raise ValueError(f"channelize_fused: layout {layout!r}, expected "
+                         f"one of {sorted(LAUNCH)}")
     check_vector(x, "x", torch.complex64)
     check_vector(poly, "poly", torch.float32, x.device, ndims=(2,))
     J, N = poly.shape
@@ -92,18 +108,23 @@ def channelize_fused(x: torch.Tensor, poly: torch.Tensor,
         if tail.shape[0] < (J - 1) * N:
             raise ValueError(f"tail of {tail.shape[0]} samples, the FIR "
                              f"needs {(J - 1) * N}")
-    if x.device.type == "cpu":
-        return channelize_fused_plain(x, poly, tail)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"channelize_fused: unsupported device {x.device}")
-    out = torch.empty((n // N, N), dtype=torch.complex64, device=x.device)
+    if metrics.enabled():
+        metrics.count("pfb." + layout)
+    if x.device.type == "cpu":
+        return channelize_fused_plain(x, poly, tail, layout)
+    shape = (N, n // N) if layout == "chan" else (n // N, N)
+    out = torch.empty(shape, dtype=torch.complex64, device=x.device)
     h = 0 if tail is None else tail.shape[0]
     library().launch(
-        "pfb_launch", x.device, complex_ptr(tail), h, complex_ptr(x), n,
+        LAUNCH[layout], x.device, complex_ptr(tail), h, complex_ptr(x), n,
         poly.data_ptr(), J, N, complex_ptr(out),
     )
     channelize_fused.launches += 1
+    channelize_fused.forms[layout] += 1
     return out
 
 
 channelize_fused.launches = 0  # kernel launches since the last reset
+channelize_fused.forms = {"row": 0, "chan": 0}  # by layout

@@ -4,6 +4,8 @@
 Where the JAX package vmaps rx_block over the channels, the channels here
 are the batch axis of one rx_block call: one detect launch, one selection
 and one gather for all of them, and one demod over the n_chan * K slots.
+The channelizer hands its output over channel-major, (n_chan, S), as
+rx_block batches it: on the card pfb writes that layout itself.
 
 carry = (channelizer tail (C,) raw samples, per-channel history
 (n_chan, H), step () int32).  Per-channel sample rate is fs / n_chan; each
@@ -71,8 +73,8 @@ def wideband_rx_block(
         ch_tail, rx_hist, step = state
         with metrics.span("wideband.channelize"):
             chans, new_tail = channelize_stream(x, ch_tail, n_chan,
-                                                poly(x.device))
-            chans = chans.t().contiguous()                  # (n_chan, S)
+                                                poly(x.device),
+                                                layout="chan")  # (n_chan, S)
         res = rx_block(spec, chans, K, own_lo=0, own_hi=S, head=rx_hist,
                        equalizer=equalizer)
         if S >= H:

@@ -11,6 +11,8 @@ kernel with a zero tail.  On the card a 1-D stream at a channel count the
 kernel covers launches it, as in the JAX package; anything else takes the
 JAX package's XLA chain in torch ops (commutator, shifted multiply-adds,
 torch.fft.ifft), which is also what runs on the CPU (`channelize_route`).
+The streaming step hands out the layout its caller asks for: (rows, N),
+or channel-major (N, rows), which the kernel writes directly.
 
 The numpy table functions (`lowpass_taps`, `polyphase_decompose`) and the
 host-side synthesis filterbank are the reference's, re-implemented because
@@ -91,23 +93,30 @@ def stream_tail_len(n_chan: int, taps: np.ndarray) -> int:
 
 
 def channelize_stream(x: torch.Tensor, tail: torch.Tensor, n_chan: int,
-                      poly: torch.Tensor):
+                      poly: torch.Tensor, layout: str = "row"):
     """One streaming channelizer step with a RAW-SAMPLE tail carry.
 
     x: (block,) complex64, block % n_chan == 0; tail: the
     stream_tail_len samples immediately preceding x (zeros at stream
     start); poly: the (J, n_chan) float32 polyphase matrix on x's device.
-    Returns (out (block // n_chan, n_chan), new_tail); new_tail is a copy,
-    so the caller may reuse x's memory."""
+    Returns (out, new_tail): out (block // n_chan, n_chan), or with layout
+    "chan" its (n_chan, block // n_chan) transpose (pfb.channelize_fused's
+    layouts, on either route); new_tail is a copy, so the caller may reuse
+    x's memory."""
+    if layout not in pfb.LAUNCH:
+        raise ValueError(f"channelize_stream: layout {layout!r}, expected "
+                         f"one of {sorted(pfb.LAUNCH)}")
     J = poly.shape[0]
     C = pfb.tail_len(n_chan, J)
     if channelize_route(x.device.type, x.ndim, n_chan) == "kernel":
-        out = pfb.channelize_fused(x, poly, tail=tail)
+        out = pfb.channelize_fused(x, poly, tail=tail, layout=layout)
     else:
         k = (J - 1) * n_chan
         hist = commutator_rows(tail[..., C - k:], n_chan)
         ext = torch.cat([hist, commutator_rows(x, n_chan)], dim=-2)
         out = channelize_ext(ext, poly)
+        if layout == "chan":
+            out = out.transpose(-1, -2).contiguous()
     n = x.shape[-1]
     if n >= C:
         new_tail = x[..., n - C:].clone()
