@@ -23,8 +23,9 @@ import numpy as np
 import torch
 
 from tpu_ofdm_torch.config import OfdmSpec, StreamConfig
+from tpu_ofdm_torch.modem import sink
 from tpu_ofdm_torch.modem.rx import RxBlockResult, rx_block
-from tpu_ofdm_torch.modem.rx_stream import history_len, sink_wait
+from tpu_ofdm_torch.modem.rx_stream import history_len
 from tpu_ofdm_torch.spectrum.channelizer import (
     channelize_stream,
     device_poly,
@@ -110,35 +111,9 @@ def carry_to_jax(state):
 
 def collect_wideband_frames(outs, per_chan_block: int, spec: OfdmSpec):
     """Flatten WidebandRxOut steps -> frame dicts with channel + abs_start
-    in PER-CHANNEL sample units (host-side).  Spans and counter as
-    rx_stream.collect_frames."""
+    in PER-CHANNEL sample units (host-side, modem.sink)."""
     H = history_len(spec)
-    frames = []
-    traced = metrics.enabled()
-    for o in outs:
-        step = sink_wait(o) if traced else None
-        with metrics.span("sink.copy", push=step):
-            valid = o.result.valid.cpu().numpy()          # (n_chan, K)
-            if not valid.any():
-                continue
-            if step is None:
-                step = int(o.block_index)
-            f = o.result.frames
-            host = {name: getattr(f, name).cpu().numpy() for name in (
-                "payload", "payload_len", "frame_num", "crc_ok", "evm")}
-            starts = o.result.starts.cpu().numpy()
-        with metrics.span("sink.unpack", push=step):
-            slots = np.nonzero(valid)
-            metrics.count("rx.frames", len(slots[0]))
-            for c, k in zip(*slots):
-                plen = int(host["payload_len"][c, k])
-                frames.append({
-                    "channel": int(c),
-                    "payload": bytes(host["payload"][c, k][:plen]),
-                    "frame_num": int(host["frame_num"][c, k]),
-                    "crc_ok": bool(host["crc_ok"][c, k]),
-                    "evm": float(host["evm"][c, k]),
-                    "abs_start": (step * per_chan_block - H
-                                  + int(starts[c, k])),
-                })
-    return frames
+    return sink.collect(
+        ((o.result, o.block_index, (0, 0, 1)) for o in outs),
+        ("channel", "payload", "frame_num", "crc_ok", "evm", "abs_start"),
+        lambda step, t: step * per_chan_block - H)

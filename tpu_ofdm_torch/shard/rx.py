@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from tpu_ofdm_torch.config import OfdmSpec
+from tpu_ofdm_torch.modem import sink
 from tpu_ofdm_torch.modem.rx import RxBlockResult, rx_block
 # the carry (tail complex64 (C, H), step int32) converts to and from the
 # JAX package's as the receiver's carry does: a dtype cast a leaf
@@ -195,52 +196,21 @@ def sharded_rx_stream_block(
     return Block(init, apply, f"sharded_rx_stream({n_channels}ch)", latency=H)
 
 
-def _host(res: RxBlockResult) -> dict:
-    f = res.frames
-    host = {name: getattr(f, name).cpu().numpy() for name in (
-        "payload", "payload_len", "frame_num", "crc_ok", "evm")}
-    host["valid"] = res.valid.cpu().numpy()
-    host["starts"] = res.starts.cpu().numpy()
-    return host
-
-
-def _frames(host: dict, c0: int, K: int, abs_start) -> list[dict]:
-    """Frame dicts of the valid slots; abs_start(t, start) with t the
-    slot's time shard within the result."""
-    frames = []
-    valid = host["valid"]
-    for c in range(valid.shape[0]):
-        for j in np.nonzero(valid[c])[0]:
-            t, _ = divmod(int(j), K)
-            plen = int(host["payload_len"][c, j])
-            frames.append({
-                "channel": c0 + c,
-                "payload": bytes(host["payload"][c, j][:plen]),
-                "payload_len": plen,
-                "frame_num": int(host["frame_num"][c, j]),
-                "crc_ok": bool(host["crc_ok"][c, j]),
-                "evm": float(host["evm"][c, j]),
-                "abs_start": abs_start(t, int(host["starts"][c, j])),
-            })
-    return frames
+# the keys of the sharded sinks' frame dicts
+_KEYS = ("channel", "payload", "payload_len", "frame_num", "crc_ok", "evm",
+         "abs_start")
 
 
 def collect_sharded_stream_frames(outs, shard_len: int, spec: OfdmSpec,
                                   n_time: int):
     """Flatten ShardedStreamOut chunks into frame dicts with ABSOLUTE start
-    positions in the global per-channel stream (host-side PDU sink);
-    n_time is the mesh's time shards.  Each out's origin places its
-    rows and slots."""
+    positions in the global per-channel stream (host-side PDU sink,
+    modem.sink), sorted by channel and start; n_time is the mesh's time
+    shards.  Each out's origin places its rows and slots."""
     H = history_len(spec)
-    frames = []
-    for o in outs:
-        step = int(o.chunk_index)
-        c0, t0, n_held = (int(v) for v in o.origin.cpu())
-        host = _host(o.result)
-        K = host["valid"].shape[1] // n_held
-        frames += _frames(
-            host, c0, K,
-            lambda t, s: (step * n_time + t0 + t) * shard_len - H + s)
+    frames = sink.collect(
+        ((o.result, o.chunk_index, o.origin) for o in outs), _KEYS,
+        lambda step, t: (step * n_time + t) * shard_len - H)
     frames.sort(key=lambda d: (d["channel"], d["abs_start"]))
     return frames
 
@@ -249,13 +219,11 @@ def collect_sharded_frames(res: RxBlockResult, shard_len: int,
                            spec: OfdmSpec, n_time: int,
                            origin: tuple[int, int] = (0, 0)):
     """Flatten a sharded-capture result into per-channel frame dicts with
-    absolute start positions (host-side PDU sink equivalent).  n_time is
-    the number of time shards the result covers; `origin` is its first
-    channel and first time shard (a dist rank's own shard: n_time 1 and
-    its (c * c_local, t))."""
+    absolute start positions (host-side PDU sink equivalent, modem.sink).
+    n_time is the number of time shards the result covers; `origin` is its
+    first channel and first time shard (a dist rank's own shard: n_time 1
+    and its (c * c_local, t))."""
     H = history_len(spec)
-    host = _host(res)
-    K = host["valid"].shape[1] // n_time
-    c0, t0 = origin
-    return _frames(host, c0, K,
-                   lambda t, s: (t0 + t) * shard_len - H + s)
+    return sink.collect(
+        [(res, None, (*origin, n_time))], _KEYS,
+        lambda step, t: t * shard_len - H)
