@@ -20,7 +20,8 @@ import tests.golden.golden_ofdm as G
 from tpu_ofdm_torch import config as tconfig
 from tpu_ofdm_torch.kernels.gather import gather_windows
 from tpu_ofdm_torch.modem import rx as trx
-from tpu_ofdm_torch.modem.rx_stream import history_len
+from tpu_ofdm_torch.modem.rx_stream import (RxStreamOut, collect_frames,
+                                            history_len)
 from tpu_ofdm_torch.ops.sync import derotate, detect_frames
 from tpu_ofdm_torch.utils import metrics
 
@@ -201,6 +202,72 @@ def test_replayed_step_equals_eager_and_owns_its_memory(
         for t in trx._leaves(r):
             assert t.untyped_storage().data_ptr() not in static_ptrs
         assert _same_bits(r, c)
+
+
+SINK_FIELDS = ("valid", "payload", "payload_len", "frame_num", "hdr_ok",
+               "crc_ok", "evm", "int_cfo", "starts", "fine_cfo")
+
+
+@pytest.mark.parametrize("payload,shape,max_frames,span", [
+    (256, (1 << 16,), 480, 135_840),       # fft 64, K 480
+    (64, (64, 1 << 12), 4, 23_296)])       # wideband: 64 channels, K 4
+def test_layout_puts_the_sinks_fields_first(payload, shape, max_frames,
+                                            span):
+    """The flat buffer opens with the ten fields the sink reads, one after
+    another in one span of `span` bytes; the LLRs follow, then the
+    symbols and the rest, which the sink never reads."""
+    spec = tconfig.OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk",
+                              max_payload_bytes=payload).spec
+    x = torch.zeros(shape, dtype=torch.complex64)
+    res = trx.rx_block_eager(spec, x, max_frames, 0, shape[-1], None,
+                             "pilot_phase", "hard")
+    layout = trx._Layout(trx._leaves(res))
+    at = dict(zip(trx._NAMES, layout.fields))
+    end = 0
+    for name in SINK_FIELDS:
+        off, n, *_ = at[name]
+        assert end <= off < end + layout.ALIGN, name
+        end = off + n
+    assert end == span
+    assert at["llr"][0] == span
+    for name in ("data_syms", "sym_mask", "sync_q", "sync_ok"):
+        assert at[name][0] >= span
+
+
+@pytest.mark.parametrize("output", ["hard", "soft"])
+def test_replayed_step_gives_the_eager_dicts_in_one_readback(
+        output, graphs, monkeypatch):
+    """collect_frames on a replayed step reads its record back in one
+    .cpu() and gives the eager step's dicts."""
+    opts = dict(own_lo=0, own_hi=S, equalizer="pilot_phase", output=output)
+    cpu = torch.Tensor.cpu
+    calls = []
+
+    def counted(t, *args, **kwargs):
+        calls.append(t)
+        return cpu(t, *args, **kwargs)
+    n = 0
+    for i, (x, head) in enumerate(_blocks(False)):
+        got = trx.rx_block(SPEC, x, K, head=head, **opts)
+        want = trx.rx_block_eager(SPEC, x, K, head=head, **opts)
+        index = torch.tensor(i, dtype=torch.int32)
+        expected = collect_frames([RxStreamOut(want, index)], S, H)
+        calls.clear()
+        with monkeypatch.context() as m:
+            m.setattr(torch.Tensor, "cpu", counted)
+            frames = collect_frames([RxStreamOut(got, index)], S, H)
+        if i >= 2:                            # the replays
+            assert len(calls) == 1
+        assert [list(f) for f in frames] == [list(f) for f in expected]
+        for f, e in zip(frames, expected):
+            for key in e:
+                assert type(f[key]) is type(e[key])
+                if key == "llr":
+                    np.testing.assert_array_equal(f[key], e[key])
+                else:
+                    assert f[key] == e[key]
+        n += len(frames) if i >= 2 else 0
+    assert n >= 3
 
 
 def _call(x, head, **kw):

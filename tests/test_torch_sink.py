@@ -7,13 +7,16 @@ Valid slots are scattered over channels and time shards, and a step with
 no valid slot reports nothing.  Each sink's frames are compared with a
 literal list: the keys and their order, each value's type and value, and
 the order of the frames.  With spans on, the sharded sinks record the
-sink's spans and counter as the others do."""
+sink's spans and counter as the others do.  The same steps packed as a
+replayed step's are (each result views of one byte buffer, through
+modem/rx.py's _Layout) give the same dicts from one readback a step."""
 
 import numpy as np
 import pytest
 import torch
 
 from tpu_ofdm_torch import config as tconfig
+from tpu_ofdm_torch.modem import rx as trx
 from tpu_ofdm_torch.modem.rx import FrameResult, RxBlockResult
 from tpu_ofdm_torch.modem.rx_stream import RxStreamOut, collect_frames
 from tpu_ofdm_torch.modem.wideband import (WidebandRxOut,
@@ -226,7 +229,9 @@ def test_the_sharded_sinks_record_the_sink_spans_and_frame_counter(
         sink, waits, unpacks):
     """With spans on: "sink.wait" on each chunk's index (the capture has
     none), "sink.copy" on every step, "sink.unpack" on each step with a
-    valid slot, under its push number, and the counter "rx.frames"."""
+    valid slot, under its push number, and the counters "rx.frames" and
+    "sink.fields" (each step read field by field: the gathered shards
+    share no storage)."""
     run, want = WANT[sink]
     tm.enable(True)
     tm.drain()
@@ -241,7 +246,8 @@ def test_the_sharded_sinks_record_the_sink_spans_and_frame_counter(
     assert pushes("sink.wait") == waits
     assert pushes("sink.copy") == (waits or [None])
     assert pushes("sink.unpack") == unpacks
-    assert got.counters == {"rx.frames": len(want)}
+    assert got.counters == {"rx.frames": len(want),
+                            "sink.fields": len(waits) or 1}
     _same(frames, want)
 
 
@@ -268,3 +274,92 @@ def test_each_sink_reads_a_field_back_once_a_step(sink, monkeypatch):
     monkeypatch.setattr(torch.Tensor, "cpu", counted)
     run()
     assert len(calls) == READBACKS[sink]
+
+
+def _packed(res, flat=None):
+    """res as a replayed step returns it: each field a view of one byte
+    buffer (`flat`, reused where given, else a new one), laid out by
+    _Layout."""
+    leaves = trx._leaves(res)
+    layout = trx._Layout(leaves)
+    if flat is None:
+        flat = torch.empty(layout.nbytes, dtype=torch.uint8)
+    layout.pack(leaves, flat)
+    return trx._from_leaves(layout.unpack(flat))
+
+
+PACKED = {                    # sink, its steps
+    "collect_frames_hard": (
+        lambda outs: collect_frames(outs, block_size=4096, hist=H),
+        _rx_outs),
+    "collect_frames_soft": (
+        lambda outs: collect_frames(outs, block_size=4096, hist=H),
+        lambda: _rx_outs(LLR)),
+    "collect_frames_no_block_size": (collect_frames, _rx_outs),
+    "collect_wideband_frames": (
+        lambda outs: collect_wideband_frames(outs, 1024, SPEC),
+        _wideband_outs),
+}
+
+
+def _packed_outs(sink):
+    return [o._replace(result=_packed(o.result)) for o in PACKED[sink][1]()]
+
+
+@pytest.mark.parametrize("sink", list(PACKED))
+def test_packed_steps_give_the_same_frame_dicts(sink):
+    """Each step's result views of one buffer: the same dicts as field by
+    field, and with spans on the counter "sink.packed" a step."""
+    run, _ = PACKED[sink]
+    outs = _packed_outs(sink)
+    tm.enable(True)
+    tm.drain()
+    try:
+        frames = run(outs)
+        got = tm.drain()
+    finally:
+        tm.enable(False)
+    _same(frames, WANT[sink][1])
+    assert got.counters["sink.packed"] == len(outs)
+    assert "sink.fields" not in got.counters
+
+
+READBACKS_PACKED = {          # .cpu() calls: the record, once a step
+    "collect_frames_hard": 3,
+    "collect_frames_soft": 3,
+    "collect_frames_no_block_size": 3,
+    "collect_wideband_frames": 3,
+}
+
+
+@pytest.mark.parametrize("sink", list(READBACKS_PACKED))
+def test_a_packed_step_is_read_back_in_one_copy(sink, monkeypatch):
+    run, _ = PACKED[sink]
+    outs = _packed_outs(sink)
+    calls = []
+    cpu = torch.Tensor.cpu
+
+    def counted(t, *args, **kwargs):
+        calls.append(tuple(t.shape))
+        return cpu(t, *args, **kwargs)
+    monkeypatch.setattr(torch.Tensor, "cpu", counted)
+    run(outs)
+    assert len(calls) == READBACKS_PACKED[sink]
+    assert all(len(shape) == 1 for shape in calls)       # bytes
+
+
+@pytest.mark.parametrize("sink", list(PACKED))
+def test_packed_frames_outlive_the_buffer_they_were_read_from(sink):
+    """Steps packed one after another into one reused buffer, each
+    collected before the next is packed, then the buffer overwritten:
+    every step's frames, its LLR arrays included, stay as they were
+    read."""
+    run, steps = PACKED[sink]
+    outs = steps()
+    flat = torch.empty(trx._Layout(trx._leaves(outs[0].result)).nbytes,
+                       dtype=torch.uint8)
+    frames = []
+    for o in outs:
+        frames += run([o._replace(result=_packed(o.result, flat))])
+    flat.fill_(255)
+    _same(frames, WANT[sink][1])

@@ -160,10 +160,12 @@ def test_a_push_and_its_sink_record_their_stages_under_one_push_number():
     assert unpacked == [0, 1]              # push 2 reports no frame
     assert all(s.parent is None for s in got.spans
                if s.name.startswith("sink."))
-    # no CFO: every frame's integer shift is 0; one L = 32 detection a push
+    # no CFO: every frame's integer shift is 0; one L = 32 detection a push;
+    # the CPU's eager steps are read back field by field
     assert got.counters == {"rx.slots": K * len(blocks),
                             "rx.frames": len(frames), "rx.int_cfo": 0,
-                            "sc_detect.l32": len(blocks)}
+                            "sc_detect.l32": len(blocks),
+                            "sink.fields": len(blocks)}
     summ = tm.summary(got.spans)
     assert summ["executor.push"]["calls"] == len(blocks)
     assert summ["executor.push"]["self_ms"] <= summ["executor.push"]["ms"]

@@ -273,6 +273,16 @@ def _leaves(res: RxBlockResult) -> list[torch.Tensor]:
     return [*res.frames, res.starts, res.fine_cfo, res.valid]
 
 
+# the leaves in the order of their place in the flat buffer: first what the
+# sink (modem/sink.py) reads of a step, so that one copy of one span of
+# bytes brings it to the host; then what it never reads
+_NAMES = (*FrameResult._fields, *RxBlockResult._fields[1:])   # _leaves'
+_PLACED = [_NAMES.index(name) for name in (
+    "valid", "payload", "payload_len", "frame_num", "hdr_ok", "crc_ok",
+    "evm", "int_cfo", "starts", "fine_cfo", "llr",
+    "data_syms", "sym_mask", "sync_q", "sync_ok")]
+
+
 def _from_leaves(leaves: list[torch.Tensor]) -> RxBlockResult:
     n = len(FrameResult._fields)
     return RxBlockResult(FrameResult(*leaves[:n]), *leaves[n:])
@@ -288,20 +298,23 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 
 
 class _Layout:
-    """Where each output tensor lies in the flat byte buffer: at an offset
-    aligned to ALIGN bytes, in a buffer a multiple of ALIGN bytes long, so
-    that the buffer views as each dtype and each tensor is a strided view
-    of one of those."""
+    """Where each of a step's output tensors (_leaves' list) lies in the
+    flat byte buffer: in _PLACED's order, each at an offset aligned to
+    ALIGN bytes, in a buffer a multiple of ALIGN bytes long, so that the
+    buffer views as each dtype and each tensor is a strided view of one of
+    those."""
 
     ALIGN = 16
 
     def __init__(self, leaves: list[torch.Tensor]):
-        self.fields = []     # (byte offset, bytes, dtype, shape, stride)
+        # (byte offset, bytes, dtype, shape, stride), in leaves' order
+        self.fields = [None] * len(leaves)
         off = 0
-        for t in leaves:
+        for i in _PLACED:
+            t = leaves[i]
             n = t.numel() * t.element_size()
             stride = torch.empty(t.shape, device="meta").stride()
-            self.fields.append((off, n, t.dtype, t.shape, stride))
+            self.fields[i] = (off, n, t.dtype, t.shape, stride)
             off += -(-n // self.ALIGN) * self.ALIGN
         self.nbytes = off
         self.dtypes = {t.dtype for t in leaves}

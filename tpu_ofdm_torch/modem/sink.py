@@ -4,21 +4,24 @@ receiver's public sink calls it with the keys of its dicts and where its
 buffers start: rx_stream.collect_frames, wideband.collect_wideband_frames,
 shard.rx's collect_sharded_frames and collect_sharded_stream_frames.
 Spans "sink.wait", "sink.copy" and "sink.unpack" a step; counters
-"rx.frames" and "rx.int_cfo" (frames with a nonzero integer CFO)."""
+"rx.frames", "rx.int_cfo" (frames with a nonzero integer CFO),
+"sink.packed" (steps read back in one copy) and "sink.fields" (steps read
+back field by field)."""
 
 from __future__ import annotations
+
+import functools
+import itertools
 
 import numpy as np
 import torch
 
 from tpu_ofdm_torch.utils import metrics
 
-# the RxBlockResult.frames fields a dict may carry, in the order they are
-# read back; payload_len is read with every step, to cut the payload
+# the RxBlockResult.frames fields a dict may carry; payload_len is read
+# with every step, to cut the payload
 FRAME_FIELDS = ("payload", "payload_len", "frame_num", "crc_ok", "hdr_ok",
                 "evm", "int_cfo")
-_TYPE = {"frame_num": int, "crc_ok": bool, "hdr_ok": bool, "evm": float,
-         "int_cfo": int, "fine_cfo": float}
 
 
 def sink_wait(index: torch.Tensor) -> int:
@@ -31,14 +34,62 @@ def sink_wait(index: torch.Tensor) -> int:
     return step
 
 
+def _fields(res, keys: tuple[str, ...]) -> dict[str, torch.Tensor]:
+    """The tensors of a step that its dicts read, by name: valid, the
+    frame fields among `keys` and payload_len, starts, and fine_cfo and
+    llr where `keys` name them (llr where the output is soft)."""
+    f = res.frames
+    out = {"valid": res.valid}
+    out.update((name, getattr(f, name)) for name in FRAME_FIELDS
+               if name in keys or name == "payload_len")
+    out["starts"] = res.starts
+    if "fine_cfo" in keys:
+        out["fine_cfo"] = res.fine_cfo
+    if "llr" in keys and f.llr.shape[-1]:
+        out["llr"] = f.llr
+    return out
+
+
+@functools.cache
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def _read_packed(fields: dict[str, torch.Tensor]) -> dict | None:
+    """The fields as numpy arrays, read back in one copy of the bytes they
+    span, where they are all views of one storage (a replayed step's
+    output record, modem/rx.py _Layout); else None.  Each step gets a
+    fresh host buffer, which the arrays view."""
+    ts = fields.values()
+    if (len({t.untyped_storage().data_ptr() for t in ts}) != 1
+            or not all(t.numel() for t in ts)):
+        return None
+    span = {name: (t.storage_offset() * t.element_size(), t.element_size()
+                   * (1 + sum((n - 1) * s
+                              for n, s in zip(t.shape, t.stride()))))
+            for name, t in fields.items()}
+    lo = min(at for at, _ in span.values())
+    hi = max(at + n for at, n in span.values())
+    valid = fields["valid"]
+    record = torch.empty(0, dtype=torch.uint8, device=valid.device).set_(
+        valid.untyped_storage(), lo, (hi - lo,))
+    buf = record.cpu().numpy()
+    return {name: np.ndarray(t.shape, _np_dtype(t.dtype), buf,
+                             span[name][0] - lo,
+                             [s * t.element_size() for s in t.stride()])
+            for name, t in fields.items()}
+
+
 def collect(steps, keys: tuple[str, ...], zero) -> list[dict]:
     """One dict a valid slot, in step order and row-major over a step's
     leading axes, (slots,) or (channel rows, slots).
 
     steps: (result, index, origin) a step: its RxBlockResult; its () int
     step index on the device, or None; origin = (first channel, first
-    time shard, time shards held), ints or an int tensor.  `valid` is read
-    first: a step without a valid slot reads nothing more.
+    time shard, time shards held), ints or an int tensor.  A step whose
+    fields are views of one storage (a replayed step) is read back in one
+    copy; any other field by field, `valid` first: a step without a valid
+    slot then reads nothing more.
     keys: the dicts' keys in order, of FRAME_FIELDS, "fine_cfo",
     "channel", "abs_start" and "llr" (the LLRs of the wire bytes, payload
     and CRC32; left out where the receiver's output is hard).
@@ -49,7 +100,18 @@ def collect(steps, keys: tuple[str, ...], zero) -> list[dict]:
     for res, index, origin in steps:
         step = sink_wait(index) if traced and index is not None else None
         with metrics.span("sink.copy", push=step):
-            valid = res.valid.cpu().numpy()
+            fields = _fields(res, keys)
+            host = _read_packed(fields)
+            if host is None:
+                metrics.count("sink.fields")
+                host = {"valid": res.valid.cpu().numpy()}
+                if host["valid"].any():
+                    host.update((name, t.cpu().numpy())
+                                for name, t in fields.items()
+                                if name != "valid")
+            else:
+                metrics.count("sink.packed")
+            valid = host.pop("valid")
             if not valid.any():
                 continue
             if step is None and index is not None:
@@ -57,39 +119,38 @@ def collect(steps, keys: tuple[str, ...], zero) -> list[dict]:
             if isinstance(origin, torch.Tensor):
                 origin = origin.cpu()
             c0, t0, n_held = (int(v) for v in origin)
-            f = res.frames
-            host = {name: getattr(f, name).cpu().numpy()
-                    for name in FRAME_FIELDS
-                    if name in keys or name == "payload_len"}
-            host["starts"] = res.starts.cpu().numpy()
-            if "fine_cfo" in keys:
-                host["fine_cfo"] = res.fine_cfo.cpu().numpy()
-            if "llr" in keys and f.llr.shape[-1]:
-                host["llr"] = f.llr.cpu().numpy()
         with metrics.span("sink.unpack", push=step):
             at = np.nonzero(valid)
             metrics.count("rx.frames", len(at[0]))
+            host = {name: a[at] for name, a in host.items()}
             if traced and "int_cfo" in keys:
                 metrics.count("rx.int_cfo",
-                              int(np.count_nonzero(host["int_cfo"][at])))
-            K = valid.shape[-1] // n_held
-            zeros = [zero(step, t0 + t) for t in range(n_held)]
-            plen = [int(n) for n in host["payload_len"][at]]
-            cols = {"payload": [bytes(p[:n]) for p, n in
-                                zip(host["payload"][at], plen)],
+                              int(np.count_nonzero(host["int_cfo"])))
+            plen = host["payload_len"].tolist()
+            wire = host["payload"]
+            blob = wire.tobytes()
+            cols = {"payload": [blob[o:o + n] for o, n in
+                                zip(itertools.count(0, wire.shape[-1]),
+                                    plen)],
                     "payload_len": plen}
             for key in keys:
                 if key == "channel":
-                    cols[key] = [c0 + int(c) for c in at[0]]
+                    cols[key] = (c0 + at[0]).tolist()
                 elif key == "abs_start":
-                    cols[key] = [zeros[int(j) // K] + int(s) for j, s in
-                                 zip(at[-1], host["starts"][at])]
-                elif key == "llr" and key in host:
-                    cols[key] = [v[:(n + 4) * 8] for v, n in
-                                 zip(host["llr"][at], plen)]
-                elif key in _TYPE:
-                    cols[key] = [_TYPE[key](v) for v in host[key][at]]
-            names = [key for key in keys if key in cols]
-            frames += [dict(zip(names, row))
-                       for row in zip(*(cols[key] for key in names))]
+                    K = valid.shape[-1] // n_held
+                    zeros = np.array([zero(step, t0 + t)
+                                      for t in range(n_held)], np.int64)
+                    cols[key] = (zeros[at[-1] // K]
+                                 + host["starts"]).tolist()
+                elif key == "llr":
+                    if key in host:
+                        cols[key] = [v[:(n + 4) * 8] for v, n in
+                                     zip(host[key], plen)]
+                elif key not in cols:
+                    cols[key] = host[key].tolist()
+            out = [{} for _ in plen]
+            for key in keys:
+                for frame, v in zip(out, cols.get(key, ())):
+                    frame[key] = v
+            frames += out
     return frames
