@@ -163,7 +163,11 @@ in order -- any failure raises and the script exits non-zero:
               output bit-identical to rx_block_eager (the function the
               graphs are captured from) on the same inputs, and unchanged
               after the later pushes have been enqueued; the replay share
-              (counters rx.graph_replay / rx.graph_eager) must be 100%
+              (counters rx.graph_replay / rx.graph_eager) must be 100%;
+              then phase 4's stream, config 2 and config 4 through their
+              sinks, 3 rounds of 3 pushes each collected in one call: every
+              dict equal to the eager steps' (read field by field), and
+              every step read back after its own event (counter sink.side)
  15. report   one JSON line of per-kernel results (sc_detect and gather
               also per config of phase 13), the nvidia-smi line, and the
               final {"ok": true, ...} line
@@ -3532,25 +3536,100 @@ def graph_path(what: str, push) -> dict:
             "replay": replay, "eager": eager}
 
 
+SINK_ROUNDS = 3          # rounds of pushes collected at once, a path
+SINK_AT_ONCE = 3         # pushes enqueued before each round's one collect
+
+
+def same_dicts(what: str, got: list[dict], want: list[dict]) -> None:
+    """Frame dicts equal key by key, in order, each value of the same type
+    and bits (an LLR array of the same dtype and bytes)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} frames, want {len(want)}")
+    for j, (g, w) in enumerate(zip(got, want)):
+        if list(g) != list(w):
+            raise AssertionError(f"{what}: frame {j}: keys {list(g)}")
+        for key, b in w.items():
+            a = g[key]
+            if isinstance(b, np.ndarray):
+                ok = (isinstance(a, np.ndarray) and a.dtype == b.dtype
+                      and a.shape == b.shape and a.tobytes() == b.tobytes())
+            else:
+                ok = type(a) is type(b) and (a == b or (a != a and b != b))
+            if not ok:
+                raise AssertionError(f"{what}: frame {j}: {key} {a!r}, "
+                                     f"want {b!r}")
+
+
+def sink_path(what: str, push, collect) -> dict:
+    """push(i) enqueues push i of a path and returns its step output;
+    collect(outs) is the path's sink.  GRAPH_WARM pushes, each collected
+    at once; then SINK_ROUNDS rounds of SINK_AT_ONCE pushes under
+    CheckedSteps, each round collected in one call with the counters on,
+    so that each step is read back after its own event while the later
+    pushes are queued.  The dicts must equal those of the eager steps
+    (read back field by field), and every step must be read on the
+    readback stream ("sink.side")."""
+    for i in range(GRAPH_WARM):
+        collect([push(i)])
+    steps = mrx.STEP_GRAPHS
+    checked = mrx.STEP_GRAPHS = CheckedSteps(steps)
+    was = metrics.enable(True)
+    metrics.drain()
+    got, outs = [], []
+    try:
+        for r in range(SINK_ROUNDS):
+            first = GRAPH_WARM + r * SINK_AT_ONCE
+            batch = [push(i) for i in range(first, first + SINK_AT_ONCE)]
+            got += collect(batch)
+            outs += batch
+    finally:
+        mrx.STEP_GRAPHS = steps
+        counters = metrics.drain().counters
+        metrics.enable(was)
+    if len(checked.calls) != len(outs):
+        raise AssertionError(f"{what}: {len(checked.calls)} steps for "
+                             f"{len(outs)} pushes")
+    want = collect([o._replace(result=eager)
+                    for o, (_, _, eager) in zip(outs, checked.calls)])
+    same_dicts(what, got, want)
+    side = counters.get("sink.side", 0)
+    if (not got or side != len(outs) or counters.get("sink.packed") != side
+            or "sink.fields" in counters):
+        raise AssertionError(f"{what}: {len(outs)} steps, {len(got)} frames,"
+                             f" counters {counters}")
+    log(f"{what}: {len(outs)} steps collected {SINK_AT_ONCE} at a time "
+        f"({len(got)} frames), every dict equal to the eager step's; "
+        f"sink.side {side}/{len(outs)}")
+    return {"steps": len(outs), "frames": len(got), "side": side}
+
+
 def phase_graphs(dev, tag: str) -> dict:
     """Phase 14 over the headline stream, configs 1-3, config 4 and the
     radio."""
     sc = StreamConfig(block_size=BLOCK, max_frames_per_block=SLOTS)
     runs = {}
 
-    def stream(what, spec, blocks, **options):
+    def stream(what, spec, blocks, sink=False, **options):
         ex = StreamExecutor(rx_stream_block(spec, sc, **options), BLOCK,
                             device=dev)
         runs[what] = graph_path(
             what, lambda i: ex.push(blocks[i % len(blocks)]))
+        if sink:
+            ex = StreamExecutor(rx_stream_block(spec, sc, **options), BLOCK,
+                                device=dev)
+            H = history_len(spec)
+            runs[f"{what} sink"] = sink_path(
+                f"{what} sink", lambda i: ex.push(blocks[i % len(blocks)]),
+                lambda outs: collect_frames(outs, BLOCK, H))
 
     blocks, _ = staged_blocks(HEADLINE.spec, 4, dev, seed=0)
-    stream("graphs headline", HEADLINE.spec, blocks)
+    stream("graphs headline", HEADLINE.spec, blocks, sink=True)
     for k, bc in enumerate(BASELINES):
         spec = bc.cfg.spec
         frame = baseline_frame(bc, baseline_payload(spec, k))
         blocks, _ = staged_blocks(spec, 4, dev, seed=30 + k, frame=frame)
-        stream(f"graphs {bc.name}", spec, blocks, output=bc.output)
+        stream(f"graphs {bc.name}", spec, blocks, output=bc.output,
+               sink=bc is BASELINES[1])
         if bc.output == "soft":
             stream(f"graphs {bc.name} simpledfe", spec, blocks,
                    output=bc.output, equalizer="simpledfe")
@@ -3561,6 +3640,11 @@ def phase_graphs(dev, tag: str) -> dict:
     ex = wideband_executor(dev)
     runs["graphs wideband"] = graph_path("graphs wideband",
                                          lambda i: ex.push(block))
+    ex = wideband_executor(dev)
+    runs["graphs wideband sink"] = sink_path(
+        "graphs wideband sink", lambda i: ex.push(block),
+        lambda outs: collect_wideband_frames(outs, BLOCK // WB_CHANS,
+                                             WIDEBAND.spec))
     del block, ex
     torch.cuda.empty_cache()
 
@@ -3579,8 +3663,9 @@ def phase_graphs(dev, tag: str) -> dict:
                                                   push)
     torch.cuda.empty_cache()
     log(f"graphs: {sum(r['steps'] for r in runs.values())} steps over "
-        f"{len(runs)} paths replayed bit-identical to the eager step  "
-        f"[{tag}]")
+        f"{len(runs)} paths replayed bit-identical to the eager step, "
+        f"{sum(r.get('side', 0) for r in runs.values())} read back after "
+        f"their own event  [{tag}]")
     return runs
 
 

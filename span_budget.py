@@ -14,8 +14,11 @@ portbench's own set-up, paths and closed loop:
             push, the counters, slot_use = 100 * rx.frames / rx.slots,
             the sc_detect launches a push by kernel form (sc_detect.l32,
             .seg, .any_l), the pfb launches a push by store form (pfb.row,
-            pfb.chan) and int_cfo_share = 100 * rx.int_cfo / rx.frames,
-            the share of the frames reported with a nonzero integer CFO;
+            pfb.chan), int_cfo_share = 100 * rx.int_cfo / rx.frames,
+            the share of the frames reported with a nonzero integer CFO,
+            and the sink's readbacks (sink.packed, sink.fields, sink.side)
+            with side_share = 100 * sink.side / the steps read back, the
+            share read on the readback stream after their own event;
   traced    spans on under torch.profiler: the card's busy ms a push, the
             loop's host ms a push outside the harness's spans, and the
             card's idle gaps, each named "<harness span>/<innermost program
@@ -72,7 +75,8 @@ def stretch(loop, seconds: float) -> dict:
 def budget(spans, counters: dict, pushes: int) -> dict:
     """Each program span's calls and host ms a push (total and self), slot
     use, sc_detect's launches a push by kernel form, pfb's by store form,
-    and the share of the frames reported with a nonzero integer CFO."""
+    the share of the frames reported with a nonzero integer CFO, and the
+    sink's readbacks by kind with the share read after their own event."""
     out = {name: {"calls": d["calls"], "ms": d["ms"] / pushes,
                   "self_ms": d["self_ms"] / pushes}
            for name, d in sorted(metrics.summary(spans).items())}
@@ -87,7 +91,19 @@ def budget(spans, counters: dict, pushes: int) -> dict:
             "detect_launches_per_push": per_push("sc_detect"),
             "pfb_launches_per_push": per_push("pfb"),
             "int_cfo_share": (100.0 * shifted / frames
-                              if frames and shifted is not None else None)}
+                              if frames and shifted is not None else None),
+            "sink_reads": sink_reads(counters)}
+
+
+def sink_reads(counters: dict) -> dict:
+    """The sink's steps read back in one copy (packed) and field by field
+    (fields), those of the packed read after their own event (side), and
+    side_share = 100 * side / the steps read back."""
+    out = {kind: counters.get(f"sink.{kind}", 0)
+           for kind in ("packed", "fields", "side")}
+    steps = out["packed"] + out["fields"]
+    out["side_share"] = 100.0 * out["side"] / steps if steps else None
+    return out
 
 
 def innermost(ranges, t: float):
@@ -273,6 +289,7 @@ def main(argv=None) -> int:
             "detect_launches_per_push": sp["detect_launches_per_push"],
             "pfb_launches_per_push": sp["pfb_launches_per_push"],
             "int_cfo_share": sp["int_cfo_share"],
+            "sink_reads": sp["sink_reads"],
             "gaps": [[g["label"], g["s"], g["worker"]]
                      for g in r["traced"]["gaps"]["longest"][:4]]}),
             flush=True)

@@ -11,6 +11,7 @@ while later steps replay."""
 
 import contextlib
 import functools
+import gc
 
 import numpy as np
 import pytest
@@ -18,11 +19,15 @@ import torch
 
 import tests.golden.golden_ofdm as G
 from tpu_ofdm_torch import config as tconfig
+from tpu_ofdm_torch.config import StreamConfig
 from tpu_ofdm_torch.kernels.gather import gather_windows
 from tpu_ofdm_torch.modem import rx as trx
 from tpu_ofdm_torch.modem.rx_stream import (RxStreamOut, collect_frames,
-                                            history_len)
+                                            history_len, rx_stream_block)
+from tpu_ofdm_torch.modem.wideband import (WidebandRxOut,
+                                           collect_wideband_frames)
 from tpu_ofdm_torch.ops.sync import derotate, detect_frames
+from tpu_ofdm_torch.stream.executor import StreamExecutor
 from tpu_ofdm_torch.utils import metrics
 
 SPEC = tconfig.OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk").spec
@@ -84,12 +89,28 @@ def _tensors(tree) -> list[torch.Tensor]:
     return []
 
 
+class _Done:
+    """The stand-in's readback: its host buffers are filled only when the
+    sink waits on it, so a sink that read them before waiting would read
+    zeros."""
+
+    def __init__(self, pairs):
+        self.pairs = pairs
+
+    def synchronize(self):
+        for host, t in self.pairs:
+            host.copy_(t)
+
+
 class CpuGraphCalls:
     """CudaGraphCalls on the CPU: one side stream (the current one), a
-    stream id the test sets, and stub graphs."""
+    stream id the test sets, stub graphs, and the step events and
+    readbacks as objects: `marks` holds each event made, `reads` each
+    (event, record, index) read back."""
 
     def __init__(self):
         self.stream_id = 0
+        self.marks, self.reads = [], []
 
     def usable(self, x):
         return True
@@ -106,6 +127,18 @@ class CpuGraphCalls:
 
     def keep(self, tensors, dev):
         pass
+
+    def mark(self, dev):
+        self.marks.append(object())
+        return self.marks[-1]
+
+    def read(self, event, record, index):
+        assert event in self.marks
+        self.reads.append((event, record, index))
+        rec, host = trx.host_buffer(record, index)
+        rec.zero_()
+        pairs = [(rec, record)] + ([] if index is None else [(host, index)])
+        return rec, host, _Done(pairs)
 
 
 @pytest.fixture
@@ -234,40 +267,150 @@ def test_layout_puts_the_sinks_fields_first(payload, shape, max_frames,
         assert at[name][0] >= span
 
 
-@pytest.mark.parametrize("output", ["hard", "soft"])
+# sink: (batched, output, collect(outs)) -- the narrowband sink, hard and
+# soft, and the wideband sink on a batched step
+SINKS = {
+    "hard": (False, "hard", lambda outs: collect_frames(outs, S, H)),
+    "soft": (False, "soft", lambda outs: collect_frames(outs, S, H)),
+    "wideband": (True, "hard",
+                 lambda outs: collect_wideband_frames(outs, S, SPEC)),
+}
+
+
+def _outs(sink, results, first=0):
+    """The receiver's step outputs around `results`, with step indices from
+    `first` on."""
+    out = WidebandRxOut if SINKS[sink][0] else RxStreamOut
+    return [out(r, torch.tensor(first + i, dtype=torch.int32))
+            for i, r in enumerate(results)]
+
+
+def _same_dicts(frames, expected):
+    assert [list(f) for f in frames] == [list(f) for f in expected]
+    for f, e in zip(frames, expected):
+        for key in e:
+            assert type(f[key]) is type(e[key])
+            if key == "llr":
+                np.testing.assert_array_equal(f[key], e[key])
+            else:
+                assert f[key] == e[key]
+
+
+@contextlib.contextmanager
+def _host_reads(monkeypatch):
+    """The host reads of tensors made inside the block (.cpu(), int(),
+    .item(), .numpy(), .tolist()), as (method, tensor) pairs."""
+    reads = []
+    with monkeypatch.context() as m:
+        for name in ("cpu", "__int__", "item", "numpy", "tolist"):
+            method = getattr(torch.Tensor, name)
+
+            def counted(t, *args, _name=name, _method=method, **kwargs):
+                reads.append((_name, t))
+                return _method(t, *args, **kwargs)
+            m.setattr(torch.Tensor, name, counted)
+        yield reads
+
+
+@pytest.mark.parametrize("output", list(SINKS))
 def test_replayed_step_gives_the_eager_dicts_in_one_readback(
         output, graphs, monkeypatch):
-    """collect_frames on a replayed step reads its record back in one
-    .cpu() and gives the eager step's dicts."""
-    opts = dict(own_lo=0, own_hi=S, equalizer="pilot_phase", output=output)
-    cpu = torch.Tensor.cpu
-    calls = []
-
-    def counted(t, *args, **kwargs):
-        calls.append(t)
-        return cpu(t, *args, **kwargs)
+    """The sink on a replayed step reads its record and index back in one
+    readback on the readback stream (the stand-in's `read`), after the
+    step's own event, with no .cpu() and no host read of the index, and
+    gives the eager step's dicts."""
+    batched, out, run = SINKS[output]
+    opts = dict(own_lo=0, own_hi=S, equalizer="pilot_phase", output=out)
     n = 0
-    for i, (x, head) in enumerate(_blocks(False)):
+    for i, (x, head) in enumerate(_blocks(batched)):
         got = trx.rx_block(SPEC, x, K, head=head, **opts)
         want = trx.rx_block_eager(SPEC, x, K, head=head, **opts)
-        index = torch.tensor(i, dtype=torch.int32)
-        expected = collect_frames([RxStreamOut(want, index)], S, H)
-        calls.clear()
-        with monkeypatch.context() as m:
-            m.setattr(torch.Tensor, "cpu", counted)
-            frames = collect_frames([RxStreamOut(got, index)], S, H)
+        expected = run(_outs(output, [want], i))
+        outs = _outs(output, [got], i)
+        graphs.calls.reads.clear()
+        with _host_reads(monkeypatch) as reads:
+            frames = run(outs)
         if i >= 2:                            # the replays
-            assert len(calls) == 1
-        assert [list(f) for f in frames] == [list(f) for f in expected]
-        for f, e in zip(frames, expected):
-            for key in e:
-                assert type(f[key]) is type(e[key])
-                if key == "llr":
-                    np.testing.assert_array_equal(f[key], e[key])
-                else:
-                    assert f[key] == e[key]
+            (read,) = graphs.calls.reads
+            assert read[0] is graphs.calls.marks[-1]
+            assert read[2] is outs[0][1]
+            assert [name for name, _ in reads if name == "cpu"] == []
+            assert not any(t is outs[0][1] for _, t in reads)
+        else:
+            assert graphs.calls.reads == []
+        _same_dicts(frames, expected)
         n += len(frames) if i >= 2 else 0
     assert n >= 3
+
+
+@pytest.mark.parametrize("sink", ["hard", "wideband"])
+def test_three_replayed_steps_collected_at_once_give_each_steps_dicts(
+        sink, monkeypatch, counted):
+    """Three replayed steps pushed before one collect give the dicts that
+    collecting each step right after its push gives, in step order, each
+    read back after its own event (counter "sink.side")."""
+    batched, out, run = SINKS[sink]
+    opts = dict(max_frames=K, own_lo=0, own_hi=S, equalizer="pilot_phase",
+                output=out)
+    blocks = _blocks(batched)
+    at_once = []
+    for g in range(2):
+        monkeypatch.setattr(trx, "STEP_GRAPHS",
+                            trx.StepGraphs(calls=CpuGraphCalls()))
+        results = [trx.rx_block(SPEC, x, head=head, **opts)
+                   for x, head in blocks[:2]]
+        if g == 0:
+            for i, (x, head) in enumerate(blocks[2:5]):
+                at_once += run(_outs(sink, [trx.rx_block(SPEC, x, head=head,
+                                                         **opts)], 2 + i))
+        else:
+            results = [trx.rx_block(SPEC, x, head=head, **opts)
+                       for x, head in blocks[2:5]]
+            metrics.drain()
+            frames = run(_outs(sink, results, 2))
+            counters = metrics.drain().counters
+            assert len(trx.STEP_GRAPHS.calls.reads) == 3
+    assert len(at_once) >= 3
+    _same_dicts(frames, at_once)
+    assert counters["sink.side"] == counters["sink.packed"] == 3
+    assert "sink.fields" not in counters
+
+
+def test_sink_side_counts_each_replayed_step_once(graphs, counted):
+    """Counter "sink.side": one per replayed step collected, none for the
+    key's first two (eager) steps, which are read field by field; and a
+    step's event goes with its record."""
+    ex = StreamExecutor(rx_stream_block(SPEC, StreamConfig(S, K)), S,
+                        device="cpu")
+    x = torch.as_tensor(_stream())
+    frames = []
+    for i in range(PUSHES):
+        frames += collect_frames([ex.push(x[i * S:(i + 1) * S])], S, H)
+    got = metrics.drain().counters
+    assert got["sink.side"] == got["sink.packed"] == PUSHES - 2
+    assert got["sink.fields"] == 2
+    assert got["rx.graph_replay"] == PUSHES - 2
+    assert len(graphs.calls.marks) == len(graphs.calls.reads) == PUSHES - 2
+    assert len(frames) == len(POSITIONS)
+
+    def mine():
+        return [m for m in trx._MARKS.values() if m[0] is graphs.calls]
+    assert len(mine()) == PUSHES - 2           # the stand-in holds each
+    graphs.calls.reads.clear()                 # record it read
+    gc.collect()
+    assert mine() == []
+
+
+def test_an_eager_step_records_no_event(counted):
+    """On the CPU without the stand-in, no step records an event and every
+    step is read field by field."""
+    x, head = _blocks(False)[2]
+    res = trx.rx_block(SPEC, x, K, own_lo=0, own_hi=S, head=head)
+    assert trx.step_mark(res.valid) is None
+    collect_frames([RxStreamOut(res, torch.tensor(2, dtype=torch.int32))],
+                   S, H)
+    got = metrics.drain().counters
+    assert got["sink.fields"] == 1 and "sink.side" not in got
 
 
 def _call(x, head, **kw):

@@ -322,6 +322,7 @@ def test_packed_steps_give_the_same_frame_dicts(sink):
     _same(frames, WANT[sink][1])
     assert got.counters["sink.packed"] == len(outs)
     assert "sink.fields" not in got.counters
+    assert "sink.side" not in got.counters       # no step event: not replayed
 
 
 READBACKS_PACKED = {          # .cpu() calls: the record, once a step

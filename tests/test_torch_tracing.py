@@ -174,6 +174,34 @@ def test_a_push_and_its_sink_record_their_stages_under_one_push_number():
         - summ["rx.demod"]["ms"], abs=1e-6)
 
 
+def test_replayed_pushes_and_their_sink_count_the_side_readback(
+        monkeypatch):
+    """Through the CUDA-graph stand-in (tests/test_torch_rx_graph.py): the
+    key's first two pushes run eagerly and are read field by field, the
+    later ones replay and are read back after their own event, "sink.wait"
+    on each under its push number, and the same frames as the CPU's eager
+    steps give."""
+    from tests.test_torch_rx_graph import CpuGraphCalls
+    from tpu_ofdm_torch.modem import rx as trx
+
+    blocks = _stream(n_blocks=4)
+    _, want = _receive(blocks)
+    monkeypatch.setattr(trx, "STEP_GRAPHS",
+                        trx.StepGraphs(calls=CpuGraphCalls()))
+    tm.enable(True)
+    _, frames = _receive(blocks)
+    got = tm.drain()
+    assert frames == want
+    assert sorted(s.push for s in got.spans
+                  if s.name == "sink.wait") == list(range(len(blocks)))
+    assert got.counters == {"rx.slots": K * len(blocks),
+                            "rx.frames": len(frames), "rx.int_cfo": 0,
+                            "sc_detect.l32": len(blocks),
+                            "rx.graph_eager": 2, "rx.graph_replay": 2,
+                            "sink.fields": 2, "sink.packed": 2,
+                            "sink.side": 2}
+
+
 def test_receiver_outputs_are_the_same_bits_with_spans_on_and_off():
     blocks = _stream()
     outs_off, frames_off = _receive(blocks)

@@ -31,6 +31,7 @@ import collections
 import contextlib
 import functools
 import threading
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -266,7 +267,8 @@ def rx_block_eager(spec: OfdmSpec, x: torch.Tensor, max_frames: int,
 # selection graph's input buffer, gather into the demod graph's.  The
 # demod graph packs every output into one flat byte buffer, which each call
 # copies out once, so a later replay cannot overwrite what an earlier call
-# returned.
+# returned, and marks with an event on the stream (step_mark), so that the
+# sink can read that copy back without waiting for what is queued after it.
 
 
 def _leaves(res: RxBlockResult) -> list[torch.Tensor]:
@@ -389,7 +391,22 @@ class _Step:
             gather_windows(x, self.sel.gstart, self.spec.max_frame_len,
                            head=head, out=self.wins)
             self.demod_graph.replay()
-            return _from_leaves(self.layout.unpack(self.flat.clone()))
+            record = self.flat.clone()
+            _MARKS[record.untyped_storage()] = (self.calls,
+                                               self.calls.mark(x.device))
+            return _from_leaves(self.layout.unpack(record))
+
+
+# a replayed step's record (the storage its result views) -> (the calls
+# that replayed it, an event recorded on the stream after the record was
+# written): its sink may read the record back once that event has passed,
+# not after whatever the stream queued since (step_mark)
+_MARKS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def step_mark(t: torch.Tensor):
+    """(calls, event) where t views a replayed step's record, else None."""
+    return _MARKS.get(t.untyped_storage())
 
 
 class CudaGraphCalls:
@@ -398,6 +415,7 @@ class CudaGraphCalls:
 
     def __init__(self):
         self._side: dict[torch.device, torch.cuda.Stream] = {}
+        self._readback: dict[torch.device, torch.cuda.Stream] = {}
 
     def usable(self, x: torch.Tensor) -> bool:
         """Whether the step on x may capture and replay: on the card, and
@@ -438,6 +456,47 @@ class CudaGraphCalls:
         cur = torch.cuda.current_stream(dev)
         for t in tensors:
             t.record_stream(cur)
+
+    def mark(self, dev: torch.device) -> torch.cuda.Event:
+        """An event recorded on dev's current stream, after the work
+        queued on it so far."""
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+        return event
+
+    def read(self, event, record: torch.Tensor, index: torch.Tensor | None):
+        """(host record, host index, done): `record` (flat uint8) and
+        `index` (a () tensor, or None) copied into one fresh pinned host
+        buffer on record's device's readback stream once `event` has
+        passed, and `done`, an event recorded there after the copies: the
+        host waits on it alone, not on what the current stream queued
+        after `event`."""
+        dev = record.device
+        stream = self._readback.get(dev)
+        if stream is None:
+            stream = self._readback[dev] = torch.cuda.Stream(dev)
+        rec, host = host_buffer(record, index, pin_memory=True)
+        with torch.cuda.stream(stream):
+            stream.wait_event(event)
+            rec.copy_(record, non_blocking=True)
+            if index is not None:
+                host.copy_(index, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return rec, host, done
+
+
+def host_buffer(record: torch.Tensor, index: torch.Tensor | None,
+                pin_memory: bool = False):
+    """(host record, host index): views of one fresh host byte buffer for
+    `record`'s bytes and, at the next multiple of 16 bytes, `index`'s (of
+    its dtype and shape; None without an index)."""
+    at = -(-record.numel() // 16) * 16
+    n = 0 if index is None else index.numel() * index.element_size()
+    buf = torch.empty(at + n, dtype=torch.uint8, pin_memory=pin_memory)
+    host = (None if index is None
+            else buf[at:].view(index.dtype).reshape(index.shape))
+    return buf[:record.numel()], host
 
 
 _WARMED = "warmed"   # a key's first call ran eagerly; the next captures

@@ -5,8 +5,9 @@ buffers start: rx_stream.collect_frames, wideband.collect_wideband_frames,
 shard.rx's collect_sharded_frames and collect_sharded_stream_frames.
 Spans "sink.wait", "sink.copy" and "sink.unpack" a step; counters
 "rx.frames", "rx.int_cfo" (frames with a nonzero integer CFO),
-"sink.packed" (steps read back in one copy) and "sink.fields" (steps read
-back field by field)."""
+"sink.packed" (steps read back in one copy), "sink.side" (of those, steps
+read back on the readback stream after their own event) and "sink.fields"
+(steps read back field by field)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import itertools
 import numpy as np
 import torch
 
+from tpu_ofdm_torch.modem import rx
 from tpu_ofdm_torch.utils import metrics
 
 # the RxBlockResult.frames fields a dict may carry; payload_len is read
@@ -55,11 +57,11 @@ def _np_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dtype).numpy().dtype
 
 
-def _read_packed(fields: dict[str, torch.Tensor]) -> dict | None:
-    """The fields as numpy arrays, read back in one copy of the bytes they
-    span, where they are all views of one storage (a replayed step's
-    output record, modem/rx.py _Layout); else None.  Each step gets a
-    fresh host buffer, which the arrays view."""
+def _record(fields: dict[str, torch.Tensor]):
+    """(record, offsets): the one span of bytes the fields cover, as a
+    flat uint8 tensor, where they are all views of one storage (a replayed
+    step's output record, modem/rx.py _Layout), and each field's byte
+    offset in it; else None."""
     ts = fields.values()
     if (len({t.untyped_storage().data_ptr() for t in ts}) != 1
             or not all(t.numel() for t in ts)):
@@ -73,11 +75,32 @@ def _read_packed(fields: dict[str, torch.Tensor]) -> dict | None:
     valid = fields["valid"]
     record = torch.empty(0, dtype=torch.uint8, device=valid.device).set_(
         valid.untyped_storage(), lo, (hi - lo,))
-    buf = record.cpu().numpy()
-    return {name: np.ndarray(t.shape, _np_dtype(t.dtype), buf,
-                             span[name][0] - lo,
+    return record, {name: at - lo for name, (at, _) in span.items()}
+
+
+def _views(fields: dict[str, torch.Tensor], buf: np.ndarray,
+           at: dict[str, int]) -> dict[str, np.ndarray]:
+    """The fields as numpy views of their record's bytes on the host."""
+    return {name: np.ndarray(t.shape, _np_dtype(t.dtype), buf, at[name],
                              [s * t.element_size() for s in t.stride()])
             for name, t in fields.items()}
+
+
+def _read_side(mark, record: torch.Tensor, index, traced: bool):
+    """(host record, step index) of a replayed step, read back on the
+    readback stream after the step's own event (`mark`, modem/rx.py
+    step_mark): the host waits for that step, not for the pushes queued
+    after it.  The span "sink.wait" times the copies' launch and the wait
+    on them; counter "sink.side"."""
+    calls, event = mark
+    with metrics.span("sink.wait") as wait:
+        rec, host_index, done = calls.read(event, record, index)
+        done.synchronize()
+        step = None if index is None else int(host_index)
+        if traced:
+            wait.push = step
+    metrics.count("sink.side")
+    return rec, step
 
 
 def collect(steps, keys: tuple[str, ...], zero) -> list[dict]:
@@ -87,9 +110,12 @@ def collect(steps, keys: tuple[str, ...], zero) -> list[dict]:
     steps: (result, index, origin) a step: its RxBlockResult; its () int
     step index on the device, or None; origin = (first channel, first
     time shard, time shards held), ints or an int tensor.  A step whose
-    fields are views of one storage (a replayed step) is read back in one
-    copy; any other field by field, `valid` first: a step without a valid
-    slot then reads nothing more.
+    fields are views of one storage is read back in one copy: a replayed
+    step's (modem/rx.py step_mark) with its index, on the readback stream
+    once the step's own event has passed, so the index has to be ready by
+    the end of the step, as a receiver's carried step index is; any other
+    step's on the current stream.  Any other step is read field by field,
+    `valid` first: a step without a valid slot then reads nothing more.
     keys: the dicts' keys in order, of FRAME_FIELDS, "fine_cfo",
     "channel", "abs_start" and "llr" (the LLRs of the wire bytes, payload
     and CRC32; left out where the receiver's output is hard).
@@ -98,11 +124,15 @@ def collect(steps, keys: tuple[str, ...], zero) -> list[dict]:
     frames = []
     traced = metrics.enabled()
     for res, index, origin in steps:
-        step = sink_wait(index) if traced and index is not None else None
+        fields = _fields(res, keys)
+        packed = _record(fields)
+        mark = None if packed is None else rx.step_mark(packed[0])
+        if mark is not None:
+            rec, step = _read_side(mark, packed[0], index, traced)
+        else:
+            step = sink_wait(index) if traced and index is not None else None
         with metrics.span("sink.copy", push=step):
-            fields = _fields(res, keys)
-            host = _read_packed(fields)
-            if host is None:
+            if packed is None:
                 metrics.count("sink.fields")
                 host = {"valid": res.valid.cpu().numpy()}
                 if host["valid"].any():
@@ -111,6 +141,9 @@ def collect(steps, keys: tuple[str, ...], zero) -> list[dict]:
                                 if name != "valid")
             else:
                 metrics.count("sink.packed")
+                if mark is None:
+                    rec = packed[0].cpu()
+                host = _views(fields, rec.numpy(), packed[1])
             valid = host.pop("valid")
             if not valid.any():
                 continue
